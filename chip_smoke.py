@@ -5,40 +5,59 @@
 
 Phases, each fatal on any mismatch or exception:
 
-  1. build   — nvcc compiles every kernel of csrc/ for sm_90a, one process
-               per source, all started together; prints the seconds taken
-               and ptxas's register/spill report.
-  2. kernels — each kernel's wrapper on the card against its plain PyTorch
-               version on the same inputs, bit-exact (integer work, so the
-               tolerance is 0), and against hashlib / the numpy GF(2^8)
-               oracle: BLAKE2s at the scrub's shape (256 lanes x 1 MiB) with
-               edge lengths, and at an odd lane count; the GF apply in both
-               of the reference's regimes (padded S4 < 2048 and >= 2048) for
-               RS(4,2) and RS(8,4) encode and an RS(8,4) decode; the fused
-               scrub at the scrub's shape against one run of its plain
-               version (plain hash, compare and count, plain GF apply),
-               whose digests also hold K1's result at that shape.
-  3. main    — the codec path as a user drives it: make_codec("cuda",
-               rs_data=8, rs_parity=4) behind a CodecFeeder; 4 scrub
-               batches of 256 x 1 MiB blocks (1 GiB, the last block of each
-               700,001 B, 3 planted corruptions) through scrub_async; 64
-               concurrent 1 MiB hash_async PUTs plus 32 write-time encodes;
-               decode_async of 32 codewords with 2 of 12 shards lost; one
-               1024-lane scrub_encode_batch.  Launch counts are zeroed just
-               before each of these four paths and read just after it; each
-               path must have launched every kernel it runs.
-  4. times   — each kernel's time (CUDA events, after a warm-up) beside its
-               bound (the larger of bytes over 3.35 TB/s and the fewest
-               32-bit instructions over the SMs' issue rate) and its plain
-               version's time; the pageable H2D copy of one scrub batch;
-               end-to-end scrub GiB/s.
+  1. build      — nvcc compiles every kernel of csrc/ for sm_90a, one
+                  process per source, all started together; prints the
+                  seconds taken and ptxas's register/spill report.
+  2. kernels    — each kernel's wrapper on the card against its plain
+                  PyTorch version on the same inputs, bit-exact (integer
+                  work, so the tolerance is 0), and against hashlib / the
+                  numpy GF(2^8) oracle: BLAKE2s at the scrub's shape (256
+                  lanes x 1 MiB) with edge lengths, and at an odd lane
+                  count; the GF apply in both of the reference's regimes
+                  (padded S4 < 2048 and >= 2048) for RS(4,2) and RS(8,4)
+                  encode and an RS(8,4) decode; the fused scrub at the
+                  scrub's shape against one run of its plain version, whose
+                  digests also hold K1's result at that shape; every
+                  variant of the GF tuning kernel (T1) at its sweep's shape.
+  3. main       — the codec path of the first slice: make_codec("cuda",
+                  rs_data=8, rs_parity=4) behind a CodecFeeder; 4 scrub
+                  batches of 256 x 1 MiB blocks (1 GiB, the last block of
+                  each 700,001 B, 3 planted corruptions) through
+                  scrub_async; 64 concurrent 1 MiB hash_async PUTs plus 32
+                  write-time encodes; decode_async of 32 codewords with 2
+                  of 12 shards lost; one 1024-lane scrub_encode_batch.
+  4. production — the stack users run: make_codec("hybrid") at the
+                  reference defaults (device_batch_blocks 1024,
+                  hybrid_window 1, 2 pinned staging slots, pool_mib 256 of
+                  256 KiB pages, max_device_staging_mib 4096) behind a
+                  CodecFeeder: a warm-up batch (the gate probe), the main
+                  phase's scrub cold, a warm pass over its last batch (a
+                  working set the pool holds), then the PUT hashes,
+                  encodes and degraded decodes.  Checks bits against
+                  hashlib / numpy, a live transport with no fallback or
+                  failure event, every scrub byte on the device, at most
+                  one host copy per block, pool hit + miss = scrubbed
+                  bytes and a warm pass that stages nothing.  Prints bytes
+                  by side, stage seconds, cold and warm GiB/s, the pinned
+                  H2D rate of one slot and collect's split.
+  5. tune       — T1's path: tools/gf_tune.py's sweep of the GF kernel's
+                  loop orders x tiles, each cell checked and timed, beside
+                  the production GF kernel on the same codewords.
+  6. times      — each kernel's time (CUDA events, after a warm-up) beside
+                  its bound (the larger of bytes over 3.35 TB/s and the
+                  fewest 32-bit instructions over the SMs' issue rate) and
+                  its plain version's time; the pageable H2D copy of one
+                  scrub batch; end-to-end scrub GiB/s.
 
-The sizes are the reference configuration's defaults: 1 MiB blocks,
-RS(8,4), 256-block scrub batches, 1024-lane device submissions.  Data and
-corruptions come from a fixed seed.  Exits non-zero without a result line
-when no CUDA device is present or the package is not beside this file.
-Prints the kernels JSON line and the card's name and power limit before
-the last line, which is {"ok": true, "device": {...}}.
+Launch counts are zeroed just before each path (main's scrub / put /
+decode / 1024-lane scrub, production's cold / warm / put / decode, tune)
+and read just after it; each path must have launched every kernel it
+runs.  The sizes are the reference configuration's defaults: 1 MiB
+blocks, RS(8,4), 256-block scrub batches, 1024-lane device submissions.
+Data and corruptions come from a fixed seed.  Exits non-zero without a
+result line when no CUDA device is present or the package is not beside
+this file.  Prints the kernels JSON line and the card's name and power
+limit before the last line, which is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -56,7 +75,8 @@ import numpy as np
 
 SEED = 20261016
 MIB = 1 << 20
-KERNELS = ("blake2s", "gf_apply", "fused_scrub")
+CODEC_KERNELS = ("blake2s", "gf_apply", "fused_scrub")
+KERNELS = CODEC_KERNELS + ("gf_tune",)
 # H100 SXM peaks (NVIDIA's data sheet): 3.35 TB/s HBM; 67 TFLOP/s float32
 # outside the tensor cores is 128 lanes x 132 SMs x 1.98 GHz x 2 (FMA).
 # 128 lanes per SM per clock is also the most 32-bit instructions an SM
@@ -196,9 +216,14 @@ def phase_build(ctx) -> None:
     secs = _build.build_all()
     log(f"[build] nvcc {', '.join(_build.SOURCES)} for sm_90a: {secs:.2f} s")
     for name, text in sorted(_build.build_logs.items()):
+        # one line per distinct report: a templated source repeats it for
+        # every instantiation
+        seen = set()
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            line = line.strip()
+            if ("registers" in line or "spill" in line) and line not in seen:
+                seen.add(line)
+                log(f"[build] {name}: {line}")
     ctx["build_s"] = secs
 
 
@@ -341,13 +366,39 @@ def phase_kernels(ctx) -> None:
         "mismatches) bit-exact vs its plain version (digests, ok, count, "
         f"parity), hashlib and numpy GF(2^8) (plain {fused_plain_ms:.1f} ms)")
 
+    # T1: every variant of the sweep's kernel at T1's shape, (8, 2^20)
+    # words of 4 codewords folded flat, at one tile, against its plain
+    # version (the variant's loop order) and the numpy oracle
+    from garage_tpu_torch.tools import gf_tune
+
+    u32, xflat, _cw, masks, _scalar, tmat = gf_tune.staged_group(dev)
+    ncw = u32.shape[0]
+    t_want = oracle.apply(tmat, u32.view(np.uint8).reshape(
+        ncw, 8, -1)).view("<u4").reshape(ncw, 4, -1)
+    tune_err, tune_plain_ms = 0, {}
+    for variant in gf_tune.VARIANTS:
+        got = gf_tune.gf_tune(xflat, masks, variant, 4096)
+        plain, tune_plain_ms[variant] = time_host(
+            torch, lambda: gf_tune.gf_tune_plain(xflat, masks, variant))
+        err = max_abs_err(got.cpu().numpy().view(np.uint32),
+                          plain.cpu().numpy().view(np.uint32))
+        check(err == 0, f"gf_tune {variant} != its plain version")
+        check(np.array_equal(gf_tune.unfold(got.cpu().numpy().view("<u4"), ncw),
+                             t_want), f"gf_tune {variant} != numpy GF(2^8)")
+        tune_err = max(tune_err, err)
+        log(f"[kernels] gf_tune {variant} tile 4096 at {tuple(xflat.shape)}: "
+            f"bit-exact vs plain version and numpy GF(2^8) (plain "
+            f"{tune_plain_ms[variant]:.1f} ms)")
+    del xflat, masks, _cw
+
     ctx["k1_inputs"] = (da, dl, lens)
     ctx["k4_inputs"] = (codec, da, dl, de)
     ctx["gf_inputs"] = (groups, K_enc)
     ctx["max_err"] = {"blake2s": b2s_err, "gf_apply": gf_err,
-                      "fused_scrub": fused_err}
+                      "fused_scrub": fused_err, "gf_tune": tune_err}
     ctx["plain_ms"] = {"blake2s": b2s_plain_ms, "gf_apply": gf_plain_ms,
                        "fused_scrub": fused_plain_ms}
+    ctx["tune_plain_ms"] = tune_plain_ms
 
 
 def phase_main(ctx) -> dict:
@@ -415,8 +466,8 @@ def phase_main(ctx) -> dict:
     # every path is driven with the launch counts set to 0 just before it
     # and read just after; each must launch the kernels it runs
     by_path = {}
-    path_needs = {"scrub": KERNELS, "put": ("blake2s", "gf_apply"),
-                  "decode": ("gf_apply",), "scrub_1024": KERNELS}
+    path_needs = {"scrub": CODEC_KERNELS, "put": ("blake2s", "gf_apply"),
+                  "decode": ("gf_apply",), "scrub_1024": CODEC_KERNELS}
 
     def start_path():
         torch.cuda.synchronize()
@@ -462,17 +513,19 @@ def phase_main(ctx) -> dict:
     end_path("scrub_1024")
     wide_stages = stage_delta(before, stages())
     launches = {name: sum(c[name] for c in by_path.values())
-                for name in KERNELS}
+                for name in CODEC_KERNELS}
     feeder.shutdown()
 
     # checks
     scrub_bytes = sum(len(b) for b in all_blocks)
+    want_par = []
     for bi, (ok, par) in enumerate(scrub_out):
         check(np.array_equal(ok, want_ok[bi]), f"scrub batch {bi}: ok vector wrong")
         rows = np.zeros((lanes, blk), np.uint8)
         for i, b in enumerate(batches[bi]):
             rows[i, :len(b)] = np.frombuffer(b, np.uint8)
         want = oracle.apply(mat, rows.reshape(lanes // k, k, blk))
+        want_par.append(want)
         check(par.shape == want.shape and np.array_equal(par, want),
               f"scrub batch {bi}: parity != numpy GF(2^8)")
         check(np.array_equal(par_wide[bi * lanes // k:(bi + 1) * lanes // k],
@@ -505,6 +558,9 @@ def phase_main(ctx) -> dict:
         log(f"[main] launches on the {path} path: {json.dumps(counts)}")
     log(f"[main] launches over the main path: {json.dumps(launches)}; "
         f"feeder {json.dumps(feeder.stats()['dispatch_reasons'])}")
+    # the production phase drives the same inputs through the hybrid stack
+    ctx["scrub_input"] = (batches, hashes, want_ok, want_par)
+    ctx["put_input"] = (data, put_blocks, parity)
     return {"launches": launches, "launches_by_path": by_path,
             "scrub_runs_s": scrub_runs,
             "scrub_s": scrub_s, "scrub_bytes": scrub_bytes,
@@ -512,7 +568,287 @@ def phase_main(ctx) -> dict:
             "wide_stages": wide_stages, "put_s": put_s, "decode_s": decode_s}
 
 
-def phase_times(ctx, main: dict) -> list:
+def oracle_parity(oracle, mat, blocks, blk) -> np.ndarray:
+    """numpy GF(2^8) parity of blocks zero-padded to blk bytes, k per
+    codeword, the last codeword zero-padded to k blocks."""
+    k = mat.shape[1]
+    rows = np.zeros((len(blocks) + (-len(blocks)) % k, blk), np.uint8)
+    for i, b in enumerate(blocks):
+        rows[i, :len(b)] = np.frombuffer(b, np.uint8)
+    return oracle.apply(mat, rows.reshape(-1, k, blk))
+
+
+def counts_now(mods) -> dict:
+    """The launch counter of every kernel's wrapper."""
+    cuda_blake2s, cuda_gf, cuda_codec, gf_tune = mods
+    return {"blake2s": cuda_blake2s.launches, "gf_apply": cuda_gf.launches,
+            "fused_scrub": cuda_codec.fused_launches,
+            "gf_tune": gf_tune.launches}
+
+
+def reset_counts(torch, mods) -> None:
+    torch.cuda.synchronize()
+    for mod in mods:
+        mod.reset_launches()
+
+
+def phase_production(ctx) -> dict:
+    """The production codec stack at the reference's defaults:
+    make_codec("hybrid") → CodecFeeder → DeviceTransport (pinned,
+    double-buffered staging) → DevicePool → CudaCodec, on the main
+    phase's inputs."""
+    torch = ctx["torch"]
+    from garage_tpu_torch.ops import cuda_blake2s, cuda_codec, cuda_gf, gf256
+    from garage_tpu_torch.ops import make_codec
+    from garage_tpu_torch.ops.feeder import CodecFeeder
+    from garage_tpu_torch.tools import gf_tune
+    from garage_tpu_torch.utils.data import Hash
+
+    mods = (cuda_blake2s, cuda_gf, cuda_codec, gf_tune)
+    blk, lanes = ctx["block"], ctx["scrub_lanes"]
+    k, m = 8, 4
+    batches, hashes, want_ok, want_par = ctx["scrub_input"]
+    data, put_blocks, put_parity = ctx["put_input"]
+    oracle = ctx["oracle"]
+    t_build = time.perf_counter()
+    hy = make_codec("hybrid", rs_data=k, rs_parity=m, device=ctx["device"],
+                    block_size=blk, device_batch_blocks=1024, hybrid_window=1,
+                    transport_staging_slots=2, pool_mib=256,
+                    pool_page_kib=256, max_device_staging_mib=4096)
+    hy.warm(blk)
+    build_s = time.perf_counter() - t_build
+    tr, pool = hy.transport, hy.pool
+    check(tr is not None and tr.pinned and pool is not None,
+          "hybrid did not arm a pinned transport with a pool")
+    feeder = CodecFeeder(hy)
+    obs = hy.obs
+
+    def stages():
+        return {k: v["seconds"] for k, v in obs.stage_stats().items()}
+
+    def snap():
+        return {"stages": stages(), "bytes": dict(obs.bytes_total),
+                "staged": tr.staged_bytes, "pool": pool.stats(),
+                "dispatches": tr.dispatches}
+
+    # warm-up: one small background batch of other blocks, so the gate
+    # probe has run before anything is measured
+    rng = np.random.default_rng(SEED + 3)
+    wb = [rng.bytes(blk) for _ in range(2 * k)]
+    wh = [Hash(hashlib_digest(b)) for b in wb]
+    wok, _ = asyncio.run(feeder.scrub_async(wb, wh))
+    check(wok.all(), "warm-up scrub batch did not verify")
+    check(hy.ragged_side() == "tpu", "the gate did not open after the "
+          f"warm-up batch (link {hy._link_rate} GiB/s)")
+
+    by_path = {}
+    path_needs = {"prod_scrub_cold": CODEC_KERNELS,
+                  "prod_scrub_warm": CODEC_KERNELS,
+                  "prod_put": ("blake2s", "gf_apply"),
+                  "prod_decode": ("gf_apply",)}
+
+    def end_path(path):
+        torch.cuda.synchronize()
+        by_path[path] = counts_now(mods)
+        for name in path_needs[path]:
+            check(by_path[path][name] > 0,
+                  f"kernel {name} was not launched on the {path} path")
+
+    def scrub_pass(path, bs, hs):
+        before = snap()
+        reset_counts(torch, mods)
+        t0 = time.perf_counter()
+        out = asyncio.run(_gather_scrubs(feeder, bs, hs))
+        wall = time.perf_counter() - t0
+        end_path(path)
+        after = snap()
+        nbytes = sum(len(x) for b in bs for x in b)
+        delta = {
+            "wall_s": wall, "bytes": nbytes,
+            "gibs": nbytes / wall / 2**30,
+            "stages": stage_delta(before["stages"], after["stages"]),
+            "side_bytes": {s: after["bytes"].get(s, 0) - before["bytes"].get(s, 0)
+                           for s in ("cpu", "tpu")},
+            "staged": after["staged"] - before["staged"],
+            "hit": after["pool"]["hit_bytes"] - before["pool"]["hit_bytes"],
+            "miss": after["pool"]["miss_bytes"] - before["pool"]["miss_bytes"],
+            "dispatches": after["dispatches"] - before["dispatches"],
+        }
+        check(delta["side_bytes"]["cpu"] == 0,
+              f"{path}: {delta['side_bytes']['cpu']} scrub bytes ran on the CPU")
+        check(delta["side_bytes"]["tpu"] == nbytes,
+              f"{path}: device bytes {delta['side_bytes']['tpu']} != {nbytes}")
+        check(delta["hit"] + delta["miss"] == nbytes,
+              f"{path}: pool hit {delta['hit']} + miss {delta['miss']} != "
+              f"{nbytes} scrubbed")
+        return out, delta
+
+    # cold: the main phase's 4 x 256 x 1 MiB scrub with its corruptions
+    cold_out, cold = scrub_pass("prod_scrub_cold", batches, hashes)
+    for bi, (ok, par) in enumerate(cold_out):
+        check(np.array_equal(ok, want_ok[bi]),
+              f"production scrub batch {bi}: ok vector wrong")
+        check(np.array_equal(par, want_par[bi]),
+              f"production scrub batch {bi}: parity != numpy GF(2^8)")
+    # warm: the last batch's verified blocks, a working set that fits the
+    # 256 MiB pool and is resident after the cold pass
+    last = len(batches) - 1
+    keep = [i for i in range(lanes) if want_ok[last][i]]
+    wset = [[batches[last][i] for i in keep]]
+    whash = [[hashes[last][i] for i in keep]]
+    warm_out, warm = scrub_pass("prod_scrub_warm", wset, whash)
+    check(warm_out[0][0].all(), "warm pass: ok vector wrong")
+    check(np.array_equal(warm_out[0][1], oracle_parity(
+        oracle, gf256.rs_parity_matrix(k, m), wset[0], blk)),
+          "warm pass: parity != numpy GF(2^8)")
+    check(warm["hit"] == warm["bytes"],
+          f"warm pass: pool hit {warm['hit']} B != {warm['bytes']} B scrubbed")
+    check(warm["staged"] == 0, f"warm pass staged {warm['staged']} B")
+
+    # foreground: 64 concurrent PUT hashes, 32 write-time encodes, then
+    # 32 degraded decodes with shards 2 and 5 of 12 lost
+    ncw = data.shape[0]
+    present = [0, 1, 3, 4, 6, 7, 8, 9, 10, 11]
+    lost = [2, 5]
+
+    async def put():
+        hs = asyncio.gather(*[feeder.hash_async([b], peers=len(put_blocks))
+                              for b in put_blocks])
+        encs = [asyncio.wrap_future(feeder.submit_encode(
+            [data[c, i].tobytes() for i in range(k)], peers=ncw))
+            for c in range(ncw)]
+        return await hs, await asyncio.gather(*encs)
+
+    async def degraded():
+        full = np.concatenate([data, put_parity], axis=1)
+        surv = full[:, present]
+        return await asyncio.gather(*[
+            feeder.decode_async(surv[c:c + 1], present, lost)
+            for c in range(ncw)])
+
+    side0 = dict(obs.bytes_total)
+    reset_counts(torch, mods)
+    t1 = time.perf_counter()
+    put_digests, enc_parity = asyncio.run(put())
+    put_s = time.perf_counter() - t1
+    end_path("prod_put")
+    reset_counts(torch, mods)
+    t2 = time.perf_counter()
+    decoded = asyncio.run(degraded())
+    decode_s = time.perf_counter() - t2
+    end_path("prod_decode")
+    fg_cpu = obs.bytes_total.get("cpu", 0) - side0.get("cpu", 0)
+    for b, d in zip(put_blocks, put_digests):
+        check(bytes(d[0]) == hashlib_digest(b), "production PUT digest wrong")
+    check(np.array_equal(np.concatenate(enc_parity), put_parity),
+          "production write-time encode parity wrong")
+    for c, d in enumerate(decoded):
+        check(np.array_equal(d[0], data[c, lost]),
+              f"production degraded read codeword {c} wrong")
+    feeder.shutdown()
+
+    # the stack's health: no fallback, no failure event of any kind, from
+    # the transport or from the hybrid codec's own engine
+    st = tr.stats()
+    bad_events = [e for e in obs.events_list() if bad_event(e)]
+    check(tr.alive, "transport is down")
+    check(st["fallbacks"] == 0, f"transport fallbacks: {st['fallbacks']}")
+    check(st["device_errors"] == 0,
+          f"failed device batches: {st['device_errors']}")
+    check(not bad_events, f"transport/device failure events: {bad_events}")
+    check(st["copies_per_block"] <= 1.0,
+          f"copies_per_block {st['copies_per_block']} > 1")
+    check(fg_cpu == 0, f"{fg_cpu} foreground bytes ran on the CPU")
+
+    # pinned H2D of one 256 MiB staging slot, beside phase_times' pageable
+    slot = tr._slot_tensors[0]
+    check(slot is not None and slot.is_pinned(), "slot 0 is not pinned")
+    _, pinned_ms = time_host(
+        torch, lambda: slot.to(ctx["device"], non_blocking=True))
+    slot_bytes = slot.numel()
+    launches = {name: sum(c[name] for c in by_path.values())
+                for name in KERNELS}
+    pool_st = pool.stats()
+    hy.close()
+
+    def per_batch(d, key):
+        return d["stages"].get(key, 0.0) / max(1, d["dispatches"])
+
+    for label, d in (("cold", cold), ("warm", warm)):
+        log(f"[production] scrub {label}: {d['bytes'] / 2**20:.0f} MiB in "
+            f"{d['wall_s'] * 1e3:.1f} ms = {d['gibs']:.3f} GiB/s end to end; "
+            f"bytes by side {json.dumps(d['side_bytes'])}; staged "
+            f"{d['staged']} B; pool hit {d['hit']} B, miss {d['miss']} B; "
+            f"{d['dispatches']} device batches")
+        log(f"[production] {label} stages (s): {json.dumps(d['stages'])}")
+    log(f"[production] cold collect per batch: event wait "
+        f"{per_batch(cold, 'collect_wait/tpu') * 1e3:.2f} ms, D2H "
+        f"{per_batch(cold, 'collect_d2h/tpu') * 1e3:.2f} ms, host copy-out "
+        f"{per_batch(cold, 'collect_copy_out/tpu') * 1e3:.2f} ms, pool adoption "
+        f"{per_batch(cold, 'pool_adopt/tpu') * 1e3:.2f} ms (sync_collect "
+        f"{per_batch(cold, 'sync_collect/tpu') * 1e3:.2f} ms)")
+    log(f"[production] pinned H2D of one {slot_bytes / 2**20:.0f} MiB slot: "
+        f"{pinned_ms:.2f} ms ({slot_bytes / pinned_ms / 1e6:.2f} GB/s)")
+    log(f"[production] 64 PUT hashes + {ncw} encodes {put_s * 1e3:.1f} ms, "
+        f"{ncw} degraded decodes {decode_s * 1e3:.1f} ms: digests == hashlib, "
+        "parity and decodes bit-identical; foreground CPU bytes 0")
+    log(f"[production] transport: alive, fallbacks 0, copies_per_block "
+        f"{st['copies_per_block']}, pinned {st['pinned']}, dispatches "
+        f"{st['dispatches']}, max staged {st['max_staged_bytes_seen']} B; "
+        f"pool {json.dumps({k: v for k, v in pool_st.items() if k in ('resident_blocks', 'resident_bytes', 'adopted', 'evicted_lru')})}; "
+        f"hybrid built and warmed in {build_s:.2f} s")
+    for path, counts in by_path.items():
+        log(f"[production] launches on the {path} path: {json.dumps(counts)}")
+    return {"launches": launches, "launches_by_path": by_path,
+            "cold": cold, "warm": warm, "pinned_h2d_ms": pinned_ms,
+            "slot_bytes": slot_bytes, "put_s": put_s, "decode_s": decode_s,
+            "transport": {k: v for k, v in st.items() if k != "stages"}}
+
+
+# events that mean work failed on the device, left it, or was redone
+# elsewhere: any of them fails the production phase
+FAILURE_EVENTS = ("transport_error", "transport_fallback", "transport_down",
+                  "feeder_error", "sync_failure", "tail_hedge", "cede")
+
+
+def bad_event(e) -> bool:
+    kind, reason = e["kind"], e.get("reason")
+    return (kind in FAILURE_EVENTS
+            or (kind == "device_attach" and reason != "ok")
+            or (kind in ("probe", "transport_probe")
+                and reason not in ("ok", "unmetered"))
+            or (kind == "gate" and reason != "open"))
+
+
+async def _gather_scrubs(feeder, bs, hs):
+    return await asyncio.gather(*[feeder.scrub_async(b, h)
+                                  for b, h in zip(bs, hs)])
+
+
+def phase_tune(ctx) -> dict:
+    """T1's path: the GF variant sweep of tools/gf_tune.py on one staged
+    group, each cell checked against the numpy oracle and timed."""
+    torch = ctx["torch"]
+    from garage_tpu_torch.tools import gf_tune
+
+    gf_tune.reset_launches()
+    torch.cuda.synchronize()
+    res = gf_tune.sweep(ctx["device"], reps=ctx["tune_reps"],
+                        oracle=ctx["oracle"].apply)
+    torch.cuda.synchronize()
+    res["launches"] = gf_tune.launches
+    check(res["launches"] > 0, "kernel gf_tune was not launched on its path")
+    for tag, cell in sorted(res["cells"].items()):
+        log(f"[tune] {tag}: {cell['ms']:.4f} ms, {cell['gibs']:.1f} GiB/s of "
+            "data, bit-exact vs numpy GF(2^8)")
+    log(f"[tune] gf_apply on the same codewords: {res['gf_apply']['ms']:.4f} ms "
+        f"({res['gf_apply']['gibs']:.1f} GiB/s); best {res['best']['tag']}; "
+        f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}); "
+        f"{res['launches']} launches")
+    return res
+
+
+def phase_times(ctx, main: dict, prod: dict, tune: dict) -> list:
     torch = ctx["torch"]
     from garage_tpu_torch.ops.cuda_blake2s import blake2s_batch
     from garage_tpu_torch.ops.cuda_gf import gf_apply
@@ -576,13 +912,14 @@ def phase_times(ctx, main: dict) -> list:
                         "garage_tpu/ops/tpu_codec.py:678"),
     }
     rows = []
-    for name in KERNELS:
+    by_path = {**main["launches_by_path"], **prod["launches_by_path"]}
+    for name in CODEC_KERNELS:
         bms, by = bound_ms(*work[name])
         rows.append({
             "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1], "launches": main["launches"][name],
-            "launches_by_path": {p: c[name] for p, c in
-                                 main["launches_by_path"].items()},
+            "replaces": meta[name][1],
+            "launches": main["launches"][name] + prod["launches"][name],
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": ctx["max_err"][name], "ms": ms[name],
             "plain_ms": ctx["plain_ms"][name], "bound_ms": bms,
             "bound_by": by, "library_ms": None,
@@ -591,6 +928,26 @@ def phase_times(ctx, main: dict) -> list:
             f"{bms:.3f} ms ({by}; {work[name][0] / 2**20:.1f} MiB, "
             f"{work[name][1] / 1e9:.2f} G instructions), plain version "
             f"{ctx['plain_ms'][name]:.1f} ms, library call: none")
+    # T1: the fastest cell of the sweep, its variant's plain time at the
+    # sweep's shape, the bytes bound, the launches of the sweep's path
+    best = tune["best"]
+    variant = best["tag"].split("/")[0]
+    rows.append({
+        "name": "gf_tune", "route": "cuda",
+        "source": "garage_tpu_torch/csrc/gf_tune.cu",
+        "replaces": "scripts/pallas_tune.py:96",
+        "launches": tune["launches"], "launches_by_path": {
+            "tune": tune["launches"]},
+        "max_abs_err": ctx["max_err"]["gf_tune"], "ms": best["ms"],
+        "plain_ms": ctx["tune_plain_ms"][variant],
+        "bound_ms": tune["bound_ms"], "bound_by": tune["bound_by"],
+        "library_ms": None, "cell": best["tag"],
+        "cells_ms": {t: c["ms"] for t, c in tune["cells"].items()},
+        "gf_apply_ms_same_data": tune["gf_apply"]["ms"],
+    })
+    log(f"[times] gf_tune: best {best['tag']} {best['ms']:.4f} ms on the card, "
+        f"bound {tune['bound_ms']:.4f} ms ({tune['bound_by']}), plain version "
+        f"({variant}) {ctx['tune_plain_ms'][variant]:.1f} ms, library call: none")
     batch_bytes = host.nbytes
     log(f"[times] pageable H2D of one {lanes} x {cols} B batch: {h2d_ms:.2f} ms "
         f"({batch_bytes / h2d_ms / 1e6:.2f} GB/s); pageable D2H of its parity "
@@ -646,7 +1003,8 @@ def main() -> int:
            "block": 64 * 1024 if args.quick else MIB,
            "scrub_lanes": 64 if args.quick else 256,
            "batches": 2 if args.quick else 4,
-           "reps": 3 if args.quick else 5, "scrub_runs": 3}
+           "reps": 3 if args.quick else 5, "scrub_runs": 3,
+           "tune_reps": 10 if args.quick else 100}
     card = nvidia_smi_line()
     log(f"[card] {torch.cuda.get_device_name(0)} ({card}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
@@ -656,13 +1014,19 @@ def main() -> int:
     main_out = phase_main(ctx)
     for name, n in main_out["launches"].items():
         check(n > 0, f"kernel {name} was not launched on the main path")
-    rows = phase_times(ctx, main_out)
+    prod_out = phase_production(ctx)
+    for name in CODEC_KERNELS:
+        check(prod_out["launches"][name] > 0,
+              f"kernel {name} was not launched on the production path")
+    tune_out = phase_tune(ctx)
+    rows = phase_times(ctx, main_out, prod_out, tune_out)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({
             "card": card, "kernels": rows, "build_s": ctx["build_s"],
             "main": {k: v for k, v in main_out.items()},
+            "production": prod_out, "tune": tune_out,
             "summary": ctx["summary"], "quick": args.quick}, indent=1,
             default=float))
     print(json.dumps({"kernels": rows}))

@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("blake2s", "gf_apply")
+SOURCES = ("blake2s", "gf_apply", "gf_tune")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -24,10 +24,26 @@ and raises when there is no GPU; "cpu" runs the kernels' plain versions
 and exists for the tests.  There is no fallback from one to the other,
 and no latch that switches a kernel off: a kernel that fails raises.
 
-Copies from numpy into the device are pageable in this slice (pinned
-staging comes with the transport).  The observer stages ``h2d_transfer``,
-``kernel_dispatch`` and ``sync_collect`` stay separate, as in the
-reference; the accelerator side keeps the observer's "tpu" label.
+Host input reaches the card in one of two ways.  A page-locked torch
+tensor (the transport's pinned staging slots, ops/transport.py) is
+copied with ``non_blocking=True``: the copy is queued on the stream and
+the caller keeps the memory unchanged until the batch is collected.  A
+numpy array or pageable tensor is a pageable copy.  Results come back
+through one reusable page-locked buffer (``_fetch``): the D2H copy is
+queued behind the kernels, then copied out into arrays the caller owns.
+Every launch and copy goes to the current stream of the device, one
+stream for all threads, so freeing a tensor (a pool page) can never
+race a kernel still reading it.
+
+The pool API (``scrub_encode_submit_resident``, ``pool_adopt``,
+``pool_read``) serves ops/device_pool.py: resident blocks live on the
+card as 1-D uint8 page tensors, each with its own storage.
+
+The observer stages ``h2d_transfer``, ``kernel_dispatch`` and
+``sync_collect`` stay separate, as in the reference, and collect is
+split further into ``collect_wait`` (the event), ``collect_d2h`` and
+``collect_copy_out``; the accelerator side keeps the observer's "tpu"
+label.
 """
 
 from __future__ import annotations
@@ -141,6 +157,12 @@ class CudaCodec(BlockCodec):
         self.last_ready_ns = 0
         self.last_submit_compiled = False
         self._dispatched_shapes = set()
+        # the transport stages into page-locked slots when this is set
+        self.pin_memory = self._on_gpu
+        # one reusable page-locked D2H buffer, grown on demand; the lock
+        # covers its fill and copy-out (collects run on several threads)
+        self._fetch_lock = threading.Lock()
+        self._pinned_out: Optional[torch.Tensor] = None
 
     @property
     def _on_gpu(self) -> bool:
@@ -187,11 +209,57 @@ class CudaCodec(BlockCodec):
 
     # --- device plumbing ---
 
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        """A host array as a device tensor: a pageable copy to the GPU,
-        or the same memory on the CPU device."""
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        return t.to(self.device) if self._on_gpu else t
+    def _to_device(self, arr) -> torch.Tensor:
+        """A host array or tensor as a device tensor.  On the GPU a
+        page-locked tensor is copied asynchronously (the caller must not
+        rewrite it before the batch is collected) and anything else is a
+        pageable copy; on the CPU device it is the same memory."""
+        if isinstance(arr, torch.Tensor):
+            t = arr.contiguous()
+        else:
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+        if not self._on_gpu:
+            return t
+        return t.to(self.device, non_blocking=t.is_pinned())
+
+    def synchronize(self) -> None:
+        """Wait for everything queued on the codec's stream."""
+        if self._on_gpu:
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _fetch(self, *tensors: torch.Tensor) -> List[np.ndarray]:
+        """Device results as host arrays the caller owns.  On the GPU the
+        D2H copies go into one reusable page-locked buffer, queued on the
+        stream behind the kernels, and are then copied out; the two steps
+        are timed as collect_d2h and collect_copy_out.  On the CPU device
+        the tensors' own memory."""
+        if not self._on_gpu:
+            return [t.numpy() for t in tensors]
+        sizes = [t.numel() * t.element_size() for t in tensors]
+        offs, total = [], 0
+        for n in sizes:
+            offs.append(total)
+            total += n + (-n) % 64  # keep every view aligned
+        with self._fetch_lock:
+            buf = self._pinned_out
+            if buf is None or buf.numel() < total:
+                buf = self._pinned_out = torch.empty(
+                    (total,), dtype=torch.uint8, pin_memory=True)
+            t0 = time.perf_counter()
+            views = []
+            for t, o, n in zip(tensors, offs, sizes):
+                v = buf[o:o + n].view(t.dtype).view(t.shape)
+                v.copy_(t, non_blocking=True)
+                views.append(v)
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            ev.synchronize()
+            t1 = time.perf_counter()
+            out = [v.numpy().copy() for v in views]
+            t2 = time.perf_counter()
+        self.obs.observe_stage("collect_d2h", "tpu", t1 - t0)
+        self.obs.observe_stage("collect_copy_out", "tpu", t2 - t1)
+        return out
 
     def _record(self) -> Optional[torch.cuda.Event]:
         if not self._on_gpu:
@@ -209,9 +277,11 @@ class CudaCodec(BlockCodec):
     def _mark_ready(self, event: Optional[torch.cuda.Event]) -> None:
         """Wait for the dispatch's event, then stamp the ready boundary:
         what follows in a collect is device→host copy and reassembly."""
+        t0 = time.perf_counter()
         if event is not None:
             event.synchronize()
         self.last_ready_ns = time.monotonic_ns()
+        self.obs.observe_stage("collect_wait", "tpu", time.perf_counter() - t0)
 
     def _gf(self, u8: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
         """(B, k, S) uint8 device slabs, S % 4 == 0 → (B, r, S) uint8."""
@@ -233,7 +303,7 @@ class CudaCodec(BlockCodec):
             lanes += (-lanes) % self._lane_align()
         return lanes, cols
 
-    def probe_submit(self, arr: np.ndarray) -> DeviceOut:
+    def probe_submit(self, arr) -> DeviceOut:
         """Upload a staged buffer and reduce it to a device scalar that
         depends on every byte (the link probe's round trip)."""
         da = self._to_device(arr)
@@ -245,9 +315,9 @@ class CudaCodec(BlockCodec):
         self._mark_ready(handle.event)
         return int(handle.value.item())
 
-    def hash_submit(self, arr: np.ndarray, lengths: np.ndarray) -> DeviceOut:
-        """Enqueue a staged (lanes, row_bytes) hash batch without
-        synchronising."""
+    def hash_submit(self, arr, lengths: np.ndarray) -> DeviceOut:
+        """Enqueue a staged (lanes, row_bytes) hash batch (numpy or a
+        host tensor) without synchronising."""
         with self.obs.stage("h2d_transfer", "tpu"):
             da = self._to_device(arr)
             dl = self._to_device(np.asarray(lengths, dtype=np.int32))
@@ -258,10 +328,10 @@ class CudaCodec(BlockCodec):
 
     def hash_collect(self, handle: DeviceOut, n: int) -> List[Hash]:
         self._mark_ready(handle.event)
-        h = handle.value[:n].cpu().numpy()
+        h, = self._fetch(handle.value[:n])
         return [Hash(d) for d in digests_to_bytes(h)]
 
-    def encode_submit(self, groups: np.ndarray) -> DeviceOut:
+    def encode_submit(self, groups) -> DeviceOut:
         """Enqueue RS parity for staged (B, k, S) codeword groups (S a
         multiple of 4, as staging_geometry's bucketing guarantees)."""
         if groups.shape[-1] % 4:
@@ -275,7 +345,7 @@ class CudaCodec(BlockCodec):
 
     def encode_collect(self, handle: DeviceOut) -> np.ndarray:
         self._mark_ready(handle.event)
-        return handle.value.cpu().numpy()
+        return self._fetch(handle.value)[0]
 
     def decode_submit(self, shards: np.ndarray, present: Sequence[int],
                       rows: Optional[Sequence[int]] = None) -> DeviceOut:
@@ -298,7 +368,7 @@ class CudaCodec(BlockCodec):
 
     def decode_collect(self, handle: DeviceOut) -> np.ndarray:
         self._mark_ready(handle.event)
-        return handle.value.cpu().numpy()
+        return self._fetch(handle.value)[0]
 
     # --- hashing ---
 
@@ -428,7 +498,7 @@ class CudaCodec(BlockCodec):
                 fused_launches += 1
         return out
 
-    def scrub_encode_submit(self, arr: np.ndarray, lengths: np.ndarray,
+    def scrub_encode_submit(self, arr, lengths: np.ndarray,
                             expected: np.ndarray) -> ScrubOut:
         """One fused dispatch for a staged batch: hash every lane,
         compare with `expected`, count corrupt lanes, and compute RS(k, m)
@@ -453,10 +523,99 @@ class CudaCodec(BlockCodec):
         """Materialise one scrub_encode_submit result: (ok full-lane bool
         array, parity full array | None)."""
         self._mark_ready(out.event)
-        ok = out.ok.cpu().numpy()
-        parity = (out.parity.cpu().numpy()
-                  if fetch_parity and out.parity is not None else None)
-        return ok, parity
+        if fetch_parity and out.parity is not None:
+            return tuple(self._fetch(out.ok, out.parity))
+        return self._fetch(out.ok)[0], None
+
+    # --- the DevicePool API (ops/device_pool.py) ---
+    #
+    # Pool-aware scrub: only MISS lanes cross the link (one compact H2D
+    # upload scattered into a zeroed device batch); resident lanes are
+    # composed from pool pages, which already live on the card.  The
+    # composed batch runs the same fused scrub as the plain path, so
+    # pool-served lanes are re-verified against their expected digests
+    # on every read.
+
+    def scrub_encode_submit_resident(self, miss_arr, miss_rows,
+                                     lengths: np.ndarray,
+                                     expected: np.ndarray, resident):
+        """Returns (ScrubOut, composed device batch): the batch is what
+        pool_adopt cuts verified miss lanes out of.  miss_arr holds the
+        miss lanes in order (numpy or a host tensor), miss_rows their
+        lanes in the batch, resident (lane, pages, length) triples."""
+        lanes = int(lengths.shape[0])
+        cols = int(miss_arr.shape[1])
+        k = self.params.rs_data
+        if (k and lanes % k) or cols % 4:
+            raise ValueError(f"staged batch ({lanes}, {cols}) needs lanes in "
+                             f"whole codewords of {k} and rows a multiple of 4")
+        with self.obs.stage("h2d_transfer", "tpu"):
+            full = torch.zeros((lanes, cols), dtype=torch.uint8,
+                               device=self.device)
+            if len(miss_rows):
+                dm = self._to_device(miss_arr[:len(miss_rows)])
+                idx = self._to_device(np.asarray(miss_rows, dtype=np.int64))
+                full.index_copy_(0, idx, dm)
+            dl = self._to_device(np.asarray(lengths, dtype=np.int32))
+            de = self._to_device(
+                np.ascontiguousarray(expected, dtype=np.uint32).view(np.int32))
+        if resident:
+            self._compose_resident(full, resident)
+        self._mark_adopt("scrub", (lanes, cols))
+        with self.obs.stage("kernel_dispatch", "tpu"):
+            out = ScrubOut(*self.fused_scrub(full, dl, de), self._record())
+        self.last_submit_variant = "cuda" if self._on_gpu else "plain"
+        return out, full
+
+    def _compose_resident(self, full: torch.Tensor, resident) -> None:
+        """Write pool-resident lanes into the device batch from their
+        pages, on the device.  When rows are whole pages, every page of
+        the batch lands with one stack and one indexed write."""
+        lanes, cols = full.shape
+        pb = int(resident[0][1][0].numel())
+        if cols % pb == 0:
+            rows, cols_at, pages = [], [], []
+            for r, pgs, _n in resident:
+                for j, pg in enumerate(pgs):
+                    rows.append(int(r))
+                    cols_at.append(j)
+                    pages.append(pg)
+            ri = torch.tensor(rows, dtype=torch.int64, device=full.device)
+            ci = torch.tensor(cols_at, dtype=torch.int64, device=full.device)
+            full.view(lanes, cols // pb, pb)[ri, ci] = torch.stack(pages)
+            return
+        for r, pgs, _n in resident:
+            row = torch.cat(list(pgs))[:cols]
+            full[int(r), :row.numel()] = row
+
+    def pool_adopt(self, input_ref: torch.Tensor, lane: int, length: int,
+                   page_bytes: int) -> List[torch.Tensor]:
+        """Cut one verified lane of a composed batch into fixed-size
+        device pages, the tail page zero-padded past the row.  Each page
+        is a device-to-device copy with its own storage: a view would
+        keep the whole batch alive behind one page, and the pool's byte
+        budget would no longer bound its device memory."""
+        pb = int(page_bytes)
+        npages = max(1, -(-int(length) // pb))
+        row = input_ref[int(lane)]
+        cols = row.numel()
+        pages = []
+        for i in range(npages):
+            lo, hi = i * pb, min((i + 1) * pb, cols)
+            if hi - lo == pb:
+                pages.append(row[lo:hi].clone())
+            else:
+                pg = torch.zeros((pb,), dtype=torch.uint8, device=row.device)
+                if hi > lo:
+                    pg[:hi - lo].copy_(row[lo:hi])
+                pages.append(pg)
+        return pages
+
+    def pool_read(self, pages, length: int) -> bytes:
+        """D2H readback of a pooled block (tests and checks only), trimmed
+        to the ragged tail."""
+        row = torch.cat(list(pages))[:int(length)]
+        return row.cpu().numpy().tobytes()
 
     def note_sync_failure(self, e: BaseException,
                           variant: Optional[str] = None) -> None:

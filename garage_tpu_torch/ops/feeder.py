@@ -25,8 +25,9 @@ SIMD multi-buffer BLAKE2s engages across requests (a single 1 MiB block
 per request leaves 7 of 8 lanes idle), the pointer-gather GF kernel
 amortizes its per-call setup, and decode submissions sharing a survivor
 pattern share one cached RS schedule ("Accelerating XOR-based Erasure
-Coding", PAPERS.md).  Behind a CudaCodec every batch runs on the GPU,
-so foreground traffic inherits the scrub path's device kernels.
+Coding", PAPERS.md).  On a device-armed node the hybrid codec routes the
+whole batch to the accelerator when the (cached) link probe clears the
+gate, so foreground traffic inherits the scrub path's device pipeline.
 
 Threading contract: submissions may come from the event loop or any
 worker thread; each returns a concurrent.futures.Future resolved by the
@@ -320,6 +321,24 @@ class CodecFeeder:
             sum(len(b) for b in blocks), cls=cls,
             want_parity=want_parity))
 
+    def prefetch_scrub(self, blocks: Sequence[bytes],
+                       hashes: Sequence) -> int:
+        """Hint the upcoming scrub range to the device pool
+        (DevicePool prefetch): non-resident blocks stage as
+        background-class transport work while the current batch
+        computes, so the next scrub batch pool-hits.  A no-op (0)
+        without an armed transport+pool — the hint is advisory and
+        never an error."""
+        tr = getattr(self.codec, "transport", None)
+        pf = getattr(tr, "prefetch", None)
+        if tr is None or pf is None or not tr.alive:
+            return 0
+        try:
+            return int(pf(list(blocks), list(hashes)))
+        except Exception:  # noqa: BLE001 — a lost hint is not an error
+            logger.warning("pool prefetch hint failed", exc_info=True)
+            return 0
+
     # sync conveniences with a closed-feeder fallback: shutdown races
     # degrade to the inline (pre-feeder) codec call, never to an error
     def hash_or_direct(self, blocks: Sequence[bytes]):
@@ -505,10 +524,35 @@ class CodecFeeder:
             by_kind.setdefault(it.kind, []).append(it)
             if self.m_wait is not None:
                 self.m_wait.observe(now - it.ts, kind=it.kind)
-        # which side computes this batch, for byte and stage attribution
-        # (the gate probe and device-pool routing come with the hybrid
-        # codec and the transport)
         side = getattr(self.codec, "ragged_side", lambda: "cpu")()
+        all_items = [it for its in by_kind.values() for it in its]
+        if (side == "cpu" and all_items
+                and all(it.cls == "bg" for it in all_items)
+                and any(it.kind != "mhash" for it in all_items)):
+            # a PURELY background batch against a closed/unprobed gate
+            # pays the (TTL-cached) link probe — the old stealing feeder
+            # probed every scrub pass; with scrub riding this queue the
+            # probe rides along, and a healthy link re-opens the device
+            # route for THIS batch.  A batch carrying any foreground
+            # item never pays it: the probe can cost a full link
+            # round-trip and this is the lone dispatcher thread.
+            # ...unless the device pool would serve the whole batch:
+            # a fully-resident scrub batch moves ZERO link bytes, so
+            # probing the link first is a pure 16 MiB cold-probe tax —
+            # route it to the device regardless of gate state instead
+            tr = getattr(self.codec, "transport", None)
+            covers = getattr(tr, "pool_covers", None)
+            scrubs = [it for it in all_items if it.kind != "mhash"]
+            if (tr is not None and tr.alive and tr.supports("scrub")
+                    and covers is not None and covers(scrubs)):
+                side = "tpu"
+                self.obs.event("feeder_route", reason="pool_resident",
+                               blocks=sum(it.blocks for it in scrubs))
+            else:
+                refresh = getattr(self.codec, "refresh_gate", None)
+                if refresh is not None:
+                    refresh()
+                    side = self.codec.ragged_side()
         if side != self._last_side:
             # route changes are gate decisions: they land in the same
             # event ring as the scrub feeder's probe/gate events
@@ -525,6 +569,31 @@ class CodecFeeder:
                 self.m_size.observe(float(nblocks), kind=kind)
             if self.m_dispatch is not None:
                 self.m_dispatch.inc(kind=kind, reason=reason)
+            # Device side: hand the whole ragged batch to the zero-copy
+            # transport (ops/transport.py) — the feeder is the single
+            # producer of its deadline-aware queue, and the transport
+            # resolves the items' futures (and counts their bytes) at
+            # collect.  A closed/absent transport, or one the device
+            # codec cannot serve for this kind, dispatches inline below.
+            if side == "tpu" and kind != "mhash":
+                # mhash (Merkle BLAKE2b) is CPU-only by contract — the
+                # device kernel hashes BLAKE2s and must never route a
+                # trie batch (see BlockCodec.mhash_batch)
+                tr = getattr(self.codec, "transport", None)
+                if tr is not None and tr.alive and tr.supports(kind):
+                    try:
+                        tr.submit_items(kind, items)
+                        self.obs.timeline.event(
+                            f"handoff {kind}", "feeder",
+                            time.monotonic_ns(), cat="feeder",
+                            blocks=nblocks, reason=reason)
+                        continue
+                    except Exception:  # noqa: BLE001 — degrade inline
+                        if getattr(tr, "on_card", False) and tr.alive:
+                            raise  # a card's failure is its callers'
+                        logger.warning(
+                            "transport submit failed; dispatching "
+                            "ragged %s batch inline", kind, exc_info=True)
             if kind == "scrub":
                 # inline scrub compute runs off the dispatcher thread
                 with self._scrub_cond:

@@ -236,12 +236,16 @@ def test_load_reference_matrices(ref, port):
 
 
 def test_no_fallback_and_unported_backends(monkeypatch):
+    """The device backends default to the card and raise without one;
+    the CPU backend has no device; unknown backends and the multi-GPU
+    split (not ported) raise."""
+    from garage_tpu_torch.ops.cpu_codec import CpuCodec
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="needs a CUDA device"):
-        make_codec("cuda")
-    for backend in ("cpu", "hybrid"):
-        with pytest.raises(ValueError, match="second slice"):
+    for backend in ("cuda", "hybrid"):
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
             make_codec(backend)
+    assert isinstance(make_codec("cpu"), CpuCodec)
     with pytest.raises(ValueError, match="unknown codec backend"):
         make_codec("tpu")
     with pytest.raises(ValueError, match="multi-GPU split not ported yet"):
@@ -267,13 +271,20 @@ import hashlib, json, sys
 from garage_tpu_torch.ops import make_codec
 from garage_tpu_torch.ops.feeder import CodecFeeder
 from garage_tpu_torch.utils.data import Hash
+import garage_tpu_torch.ops.link_profiler, garage_tpu_torch.ops.native
+import garage_tpu_torch.testing.synthetic_device
+import garage_tpu_torch.tools.gf_tune, garage_tpu_torch.utils.format_table
+import garage_tpu_torch.ops.device_pool, garage_tpu_torch.ops.transport
+import garage_tpu_torch.utils.metrics
 import asyncio
-codec = make_codec("cuda", rs_data=4, rs_parity=2, device="cpu")
 blocks = [bytes([i]) * (100 + 37 * i) for i in range(6)]
 hashes = [Hash(hashlib.blake2s(b, digest_size=32).digest()) for b in blocks]
-feeder = CodecFeeder(codec)
-ok, parity = asyncio.run(feeder.scrub_async(blocks, hashes))
-feeder.shutdown()
+for backend in ("cuda", "hybrid", "cpu"):
+    codec = make_codec(backend, rs_data=4, rs_parity=2, device="cpu")
+    feeder = CodecFeeder(codec)
+    ok, parity = asyncio.run(feeder.scrub_async(blocks, hashes))
+    feeder.shutdown()
+assert codec.scrub_encode_batch(blocks, hashes)[0].all()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "garage_tpu"
              or m.startswith("garage_tpu."))
@@ -291,3 +302,20 @@ def test_port_imports_neither_jax_nor_reference():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     assert res["ok"] == [True] * 6 and res["parity"] == [2, 2, 285]
+
+
+def test_native_build_stays_out_of_the_packages():
+    """The CPU codec's native kernels build into build/native/ at the
+    root of the checkout: nothing is written inside the package (and the
+    port never runs the reference's in-place make)."""
+    from garage_tpu_torch.ops import native
+
+    pkg_native = REPO / "garage_tpu_torch" / "native"
+    before = sorted(p.name for p in pkg_native.iterdir())
+    assert native.BUILD_DIR == REPO / "build" / "native"
+    for name in ("gf256", "blake2s_mb"):
+        lib = native.load_native(name)
+        path = native._lib_path(name)
+        assert (lib is None) or (path.exists() and path.parent == native.BUILD_DIR)
+    assert sorted(p.name for p in pkg_native.iterdir()) == before == [
+        "blake2s_mb.cpp", "gf256.cpp"]

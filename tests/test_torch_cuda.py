@@ -93,3 +93,150 @@ def test_fused_scrub_matches_cpu_codec(gpu):
     want_ok, want_par = plain.scrub_encode_batch(blocks, hashes)
     assert ok.tolist() == want_ok.tolist() == [True] * 5 + [False, True]
     assert np.array_equal(par, want_par)
+
+
+# --- slice 2: T1, pinned staging, the pool API ---------------------------
+
+
+@pytest.mark.parametrize("tile", [128, 4096])
+def test_gf_tune_variants_match_plain(gpu, tile):
+    from garage_tpu_torch.tools import gf_tune as T
+
+    rng = np.random.default_rng(tile)
+    for k, r in T.SHAPES:
+        mat = gf256.rs_parity_matrix(k, r)
+        u32 = rng.integers(0, 2**32, (3, k, 4096), dtype=np.uint32)
+        x = torch.from_numpy(T.fold(u32).view(np.int32)).to(gpu)
+        c = torch.from_numpy(T.mask_consts(mat).view(np.int32)).to(gpu)
+        want = cuda_gf.reference_apply(mat, u32)
+        for variant in T.VARIANTS:
+            before = T.launches
+            got = T.gf_tune(x, c, variant, tile)
+            torch.cuda.synchronize()
+            assert T.launches == before + 1
+            assert torch.equal(got, T.gf_tune_plain(x, c, variant))
+            assert np.array_equal(
+                T.unfold(got.cpu().numpy().view("<u4"), 3), want)
+    with pytest.raises(ValueError):
+        T.gf_tune(x, c, "acc", 96)
+
+
+def _scrub_inputs(codec, seed=21, sizes=(3000, 1, 0, 2047, 3000, 64, 65, 4096)):
+    rng = np.random.default_rng(seed)
+    blocks = [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in sizes]
+    hashes = [Hash(_digest(b)) for b in blocks]
+    hashes[4] = Hash(bytes(32))
+    return blocks, hashes, codec._pad_group(blocks, hashes)
+
+
+def test_pinned_slot_path_matches_pageable(gpu):
+    """The transport's pinned staging (page-locked slots, asynchronous
+    H2D) gives the same ok vectors and parity as pageable numpy input and
+    as the CPU device, through the transport and directly."""
+    from garage_tpu_torch.ops.cpu_codec import CpuCodec
+    from garage_tpu_torch.ops.transport import DeviceTransport, TransportItem
+
+    codec = make_codec("cuda", rs_data=4, rs_parity=2, device=gpu)
+    plain = make_codec("cuda", rs_data=4, rs_parity=2, device="cpu")
+    blocks, hashes, (arr, lengths, expected) = _scrub_inputs(codec)
+    pinned = torch.empty(arr.shape, dtype=torch.uint8, pin_memory=True)
+    pinned.numpy()[:] = arr
+    a = codec.scrub_collect(codec.scrub_encode_submit(pinned, lengths,
+                                                      expected), True)
+    b = codec.scrub_collect(codec.scrub_encode_submit(arr, lengths,
+                                                      expected), True)
+    c = plain.scrub_collect(plain.scrub_encode_submit(arr, lengths,
+                                                      expected), True)
+    for x in (b, c):
+        assert np.array_equal(a[0], x[0]) and np.array_equal(a[1], x[1])
+    want = plain.scrub_encode_batch(blocks, hashes)
+    tr = DeviceTransport(codec, codec.params,
+                         fallback=CpuCodec(codec.params))
+    assert tr.pinned
+    items = []
+    for _ in range(6):
+        it = TransportItem("scrub", (blocks, hashes), len(blocks),
+                           sum(map(len, blocks)))
+        items.append(it)
+        tr.submit_items("scrub", [it])
+    for it in items:
+        ok, par = it.future.result(timeout=60)
+        assert np.array_equal(ok, want[0]) and np.array_equal(par, want[1])
+    assert tr.stats()["fallbacks"] == 0
+    assert tr._slot_tensors[0].is_pinned()
+    tr.shutdown()
+
+
+def test_resident_submit_matches_plain_submit(gpu):
+    """scrub_encode_submit_resident over a batch whose lanes come partly
+    from pool pages (adopted from an earlier batch) and partly from a
+    compact miss upload gives scrub_encode_submit's results on the same
+    lanes; adopted pages own their storage."""
+    codec = make_codec("cuda", rs_data=4, rs_parity=2, device=gpu)
+    _blocks, _hashes, (arr, lengths, expected) = _scrub_inputs(codec)
+    want = codec.scrub_collect(codec.scrub_encode_submit(arr, lengths,
+                                                         expected), True)
+    cols = arr.shape[1]
+    for page in (cols // 2, 1000):      # whole pages per row, and not
+        lanes = list(range(arr.shape[0]))
+        miss = [r for r in lanes if r % 3 == 0]
+        out, full = codec.scrub_encode_submit_resident(
+            arr[miss], miss, lengths, expected, [])
+        got0 = codec.scrub_collect(out, True)
+        assert np.array_equal(full.cpu().numpy()[miss], arr[miss])
+        # adopt every lane of a full upload, then compose from the pages
+        out, full = codec.scrub_encode_submit_resident(
+            arr, lanes, lengths, expected, [])
+        codec.scrub_collect(out, True)
+        resident = []
+        for r in lanes:
+            if r in miss:
+                continue
+            pages = codec.pool_adopt(full, r, int(lengths[r]), page)
+            assert all(p.untyped_storage().nbytes() == page for p in pages)
+            assert codec.pool_read(pages, int(lengths[r])) == \
+                arr[r, :lengths[r]].tobytes()
+            resident.append((r, pages, int(lengths[r])))
+        del full
+        out, full = codec.scrub_encode_submit_resident(
+            arr[miss], miss, lengths, expected, resident)
+        got = codec.scrub_collect(out, True)
+        assert np.array_equal(full.cpu().numpy(), arr)
+        assert np.array_equal(got[0], want[0])
+        assert np.array_equal(got[1], want[1])
+        assert not got0[0][[r for r in lanes if r not in miss and lengths[r]]].all()
+
+
+def test_hybrid_on_the_card_cold_then_warm(gpu):
+    """make_codec("hybrid") on the card behind the feeder: a cold scrub
+    misses the pool, a warm one is all hits and stages nothing, results
+    bit-identical to the CPU codec throughout."""
+    import asyncio
+
+    from garage_tpu_torch.ops.feeder import CodecFeeder
+
+    hy = make_codec("hybrid", rs_data=4, rs_parity=2, device=gpu,
+                    block_size=4096, pool_page_kib=1)
+    cpu = make_codec("cpu", rs_data=4, rs_parity=2)
+    assert hy.transport.pinned and hy.pool is not None
+    feeder = CodecFeeder(hy)
+    blocks, hashes, _ = _scrub_inputs(hy.tpu)
+    want = cpu.scrub_encode_batch(blocks, hashes)
+    try:
+        for _ in range(3):
+            ok, par = asyncio.run(feeder.scrub_async(blocks, hashes))
+            assert np.array_equal(ok, want[0]) and np.array_equal(par, want[1])
+        staged = hy.transport.staged_bytes
+        hit = hy.pool.stats()["hit_bytes"]
+        ok, par = asyncio.run(feeder.scrub_async(blocks, hashes))
+        assert np.array_equal(par, want[1])
+        # lane 4's expected digest is wrong: it never verifies, so it is
+        # never adopted and is the one lane staged again
+        assert hy.transport.staged_bytes == staged + len(blocks[4])
+        st = hy.pool.stats()
+        assert st["hit_bytes"] - hit == sum(map(len, blocks)) - len(blocks[4])
+        assert st["hit_bytes"] + st["miss_bytes"] == 4 * sum(map(len, blocks))
+        assert hy.transport.stats()["fallbacks"] == 0
+    finally:
+        feeder.shutdown()
+        hy.close()
