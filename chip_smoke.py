@@ -13,9 +13,12 @@ Phases, each fatal on any mismatch or exception:
                   work, so the tolerance is 0), and against hashlib / the
                   numpy GF(2^8) oracle: BLAKE2s at the scrub's shape (256
                   lanes x 1 MiB) with edge lengths, and at an odd lane
-                  count; the GF apply in both of the reference's regimes
-                  (padded S4 < 2048 and >= 2048) for RS(4,2) and RS(8,4)
-                  encode and an RS(8,4) decode; the fused scrub at the
+                  count; the GF apply for every (k, r) it is compiled for
+                  (encode, degraded-read rows and full decode at RS(8,4)
+                  and RS(4,2)) and for two it is not, each through its
+                  instantiation and its runtime-(k, r) body, in both of
+                  the reference's regimes (padded S4 < 2048 and >= 2048)
+                  and at odd S4; the fused scrub at the
                   scrub's shape against one run of its plain version, whose
                   digests also hold K1's result at that shape; every
                   variant of the GF tuning kernel (T1) at its sweep's shape.
@@ -43,16 +46,24 @@ Phases, each fatal on any mismatch or exception:
   5. tune       — T1's path: tools/gf_tune.py's sweep of the GF kernel's
                   loop orders x tiles, each cell checked and timed, beside
                   the production GF kernel on the same codewords.
-  6. times      — each kernel's time (CUDA events, after a warm-up) beside
-                  its bound (the larger of bytes over 3.35 TB/s and the
-                  fewest 32-bit instructions over the SMs' issue rate) and
-                  its plain version's time; the pageable H2D copy of one
-                  scrub batch; end-to-end scrub GiB/s.
+  6. times      — each kernel's time (CUDA events, after a warm-up,
+                  launches queued behind a sleep kernel: tools/timing.py)
+                  beside its bound (the larger of bytes over 3.35 TB/s,
+                  the fewest 32-bit integer instructions over the SMs'
+                  ALU and issue rates, and, for K1 and K4, the longest
+                  message's dependent chain at the latency the chain probe
+                  measures and its instructions at one per clock) and its
+                  plain version's time; the GF
+                  kernel's instantiated and runtime bodies at the scrub
+                  and narrow shapes with a cold L2, its SASS census and
+                  the ALU rate it implies; K1 at 8, 256 and 4,224 lanes
+                  with the SM clock; the pageable H2D copy of one batch.
 
 Launch counts are zeroed just before each path (main's scrub / put /
 decode / 1024-lane scrub, production's cold / warm / put / decode, tune)
 and read just after it; each path must have launched every kernel it
-runs.  The sizes are the reference configuration's defaults: 1 MiB
+runs, and the GF kernel only the body each path needs (GF_BODIES).
+The sizes are the reference configuration's defaults: 1 MiB
 blocks, RS(8,4), 256-block scrub batches, 1024-lane device submissions.
 Data and corruptions come from a fixed seed.  Exits non-zero without a
 result line when no CUDA device is present or the package is not beside
@@ -77,19 +88,41 @@ SEED = 20261016
 MIB = 1 << 20
 CODEC_KERNELS = ("blake2s", "gf_apply", "fused_scrub")
 KERNELS = CODEC_KERNELS + ("gf_tune",)
-# H100 SXM peaks (NVIDIA's data sheet): 3.35 TB/s HBM; 67 TFLOP/s float32
-# outside the tensor cores is 128 lanes x 132 SMs x 1.98 GHz x 2 (FMA).
-# 128 lanes per SM per clock is also the most 32-bit instructions an SM
-# can issue (one warp instruction per clock on each of its 4
-# schedulers), whichever pipe runs them: the least time for integer work
-# is its instruction count at that rate.
-HBM_BYTES_PER_S = 3.35e12
-ISSUE_OPS_PER_S = 67e12 / 2
+# Operations bounds.  Only the SM's INT32 ALU pipe runs the xors,
+# rotates, byte permutes and logic of these kernels (LOP3, SHF, PRMT): 64
+# lanes per SM per clock (the Hopper architecture white paper: 64 INT32
+# beside 128 FP32 lanes per SM; the CUDA guide's throughput table for
+# compute capability 9.0: 64 results per SM per clock for 32-bit integer
+# add, shift, compare and logic).  Adds and shifts can also run on the FMA
+# pipe as IMAD (the GF kernel's SASS has its shifts there, as IMAD.SHL),
+# so all integer instructions together are capped by the issue of one
+# warp instruction per clock by each of the SM's 4 schedulers: 128 lanes.
+# The least time for integer work is therefore the larger of its ALU-only
+# instructions over 64 lanes and all its instructions over 128, x 132 SMs
+# x 1.98 GHz (tools/timing.py holds the card's peaks).  phase_times checks
+# the ALU rate on the card: the SASS census of the GF kernel's RS(8,4) and
+# RS(8,8) bodies, whose ALU work outweighs their bytes, over their
+# measured times gives the ALU lanes issued per SM per clock; on an H100
+# at 700 W both came to ~57 (PERF.md), below 64.
+ALU_LANES_PER_SM_CLOCK = 64
+ISSUE_LANES_PER_SM_CLOCK = 128
 # BLAKE2s per 64-byte chunk, in the fewest 32-bit instructions: a G is 4
 # three-input adds (a + b + m is one IADD3), 4 xors and 4 rotates (one
-# funnel shift each), 12 in all; 80 G, the counter and flag words, and
-# the 8 three-input xors of the feed-forward
+# funnel shift each), 12 in all; 80 G, the counter and flag words (an xor
+# and a select), and the 8 three-input xors of the feed-forward.  All but
+# the adds are ALU-only.
 B2S_OPS_PER_CHUNK = 80 * 12 + 2 + 8
+B2S_ALU_OPS_PER_CHUNK = 80 * 8 + 2 + 8
+# ... and its dependent chain (csrc/blake2s.cu:42-94): in a G each step
+# needs the one before (IADD3, then LOP3 xor and SHF rotate of d, IADD3
+# of c, LOP3 and SHF of b, and again: 12); the 4 column G of a round are
+# independent of each other but the 4 diagonal G read their outputs, so a
+# round is 2 G deep; 10 rounds and the feed-forward's one three-input xor
+# (h ^= v[i] ^ v[i + 8]), on which the next chunk's first G waits: 20 G
+# and one instruction, 241 dependent instructions per chunk.  Each costs
+# the latency the chain probe measures on the card (g_chain_cycles / 12).
+B2S_G_DEPTH = 12
+B2S_CHAIN_G_PER_CHUNK = 10 * 2
 
 
 def log(msg: str) -> None:
@@ -152,21 +185,6 @@ def random_rows(rng, lengths, cols) -> np.ndarray:
 # --- timing --------------------------------------------------------------------
 
 
-def time_kernel(torch, fn, reps: int) -> float:
-    """Mean milliseconds of fn() on the card: one warm-up call, then
-    `reps` calls between two CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
-
-
 def time_host(torch, fn):
     """(result, milliseconds) of one fn() call ending in a synchronize."""
     torch.cuda.synchronize()
@@ -182,29 +200,165 @@ def stage_delta(before: dict, after: dict) -> dict:
             if v - before.get(k, 0.0) > 0}
 
 
-def bound_ms(nbytes: float, ops: float):
+def ops_ms(alu_ops: float, ops: float) -> float:
+    """The least milliseconds for integer work of `ops` instructions, of
+    which `alu_ops` run only on the ALU pipe (see ALU_LANES_PER_SM_CLOCK)."""
+    from garage_tpu_torch.tools.timing import SM_CLOCK_HZ, SMS
+
+    lanes = max(alu_ops / ALU_LANES_PER_SM_CLOCK,
+                ops / ISSUE_LANES_PER_SM_CLOCK)
+    return lanes / (SMS * SM_CLOCK_HZ) * 1e3
+
+
+def bound_ms(nbytes: float, alu_ops: float, ops: float, dep_ms: float = 0.0):
+    """(bound in ms, "bytes" or "operations"): the larger of the bytes
+    over the HBM rate and the operations' least time, itself the larger of
+    their issue (ops_ms) and their longest dependent chain (`dep_ms`)."""
+    from garage_tpu_torch.tools.timing import HBM_BYTES_PER_S
+
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / ISSUE_OPS_PER_S * 1e3
+    to = max(ops_ms(alu_ops, ops), dep_ms)
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def b2s_work(lengths: np.ndarray, cols: int):
-    """(bytes, operations) BLAKE2s must do for these lanes: each lane's
-    chunks up to its own end, read once, and its 32-byte digest written."""
+    """(bytes, ALU-only instructions, instructions) BLAKE2s must do for
+    these lanes: each lane's chunks up to its own end, read once, and its
+    32-byte digest written."""
     nch = np.minimum(np.maximum((lengths.astype(np.int64) + 63) // 64, 1),
                      cols // 64)
     chunks = int(nch.sum())
-    return chunks * 64 + lengths.size * (4 + 32), chunks * B2S_OPS_PER_CHUNK
+    return (chunks * 64 + lengths.size * (4 + 32),
+            chunks * B2S_ALU_OPS_PER_CHUNK, chunks * B2S_OPS_PER_CHUNK)
+
+
+def b2s_message_ms(lengths: np.ndarray, cols: int, g_cycles: float,
+                   clock_hz: float):
+    """(chain ms, issue ms): two least times of the longest message, which
+    one thread hashes alone, so no parallel lane can shorten them.  Its
+    chunks, each a dependent chain of B2S_CHAIN_G_PER_CHUNK G and one xor
+    at `g_cycles` per G (the chain probe's measure); and its chunks'
+    B2S_OPS_PER_CHUNK instructions, which its warp issues at one per
+    clock at most.  At the SM clock `clock_hz`."""
+    chain = int(min(max((int(lengths.max()) + 63) // 64, 1), cols // 64))
+    per_chunk = (B2S_CHAIN_G_PER_CHUNK + 1 / B2S_G_DEPTH) * g_cycles
+    return (chain * per_chunk / clock_hz * 1e3,
+            chain * B2S_OPS_PER_CHUNK / clock_hz * 1e3)
+
+
+def time_kernel_clocked(torch, fn, flush=None):
+    """(mean ms of fn() on the card, median SM clock in MHz): queued_ms
+    over enough calls for 400 ms of kernel time, with nvidia-smi sampling
+    clocks.sm every 20 ms beside it."""
+    from garage_tpu_torch.tools.timing import queued_ms
+
+    est = queued_ms(fn, 2, flush)
+    reps = max(3, int(400.0 / max(est, 1e-3)) + 1)
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm",
+                            "--format=csv,noheader,nounits", "-lms", "20"],
+                           stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                           text=True)
+    try:
+        ms = queued_ms(fn, reps, flush)
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=60)
+    samples = [float(x) for x in out.split() if x.replace(".", "").isdigit()]
+    check(bool(samples), "nvidia-smi gave no clocks.sm sample")
+    return ms, float(np.median(samples))
+
+
+# SASS opcodes by the SM pipe that runs them (integer ALU, FMA, memory)
+ALU_OPS = {"LOP3", "PRMT", "SHF", "IADD3", "LEA", "ISETP", "SEL", "PLOP3",
+           "MOV", "SGXT", "IABS", "IMNMX", "FLO", "POPC", "BREV", "S2R",
+           "CS2R", "S2UR"}
+FMA_OPS = {"IMAD", "FMUL", "FADD", "FFMA"}
+MEM_OPS = {"LDG", "STG", "LDS", "STS", "LD", "ST", "LDC", "ULDC"}
+
+
+def sass_census(lib_path, symbol_part: str):
+    """Instruction counts by opcode of one kernel's SASS in a built
+    library (cuobjdump -sass), the kernel picked by a part of its mangled
+    name; None when cuobjdump is missing or finds no such kernel."""
+    import re
+    from garage_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    out = subprocess.run([str(tool), "-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        return None
+    counts, inside = {}, False
+    op_re = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            inside = symbol_part in line
+            continue
+        if not inside:
+            continue
+        m = op_re.search(line)
+        if m:
+            op = m.group(1).split(".")[0]
+            if op not in ("NOP",):
+                counts[op] = counts.get(op, 0) + 1
+    return counts or None
+
+
+def census_classes(counts: dict) -> dict:
+    """Instructions per thread by pipe class from a sass_census."""
+    cls = {"alu": 0, "fma": 0, "mem": 0, "uniform": 0, "other": 0}
+    for op, n in counts.items():
+        # U* run once per warp on the uniform datapath, not on the lanes
+        key = ("uniform" if op.startswith("U") else "alu" if op in ALU_OPS
+               else "fma" if op in FMA_OPS else "mem" if op in MEM_OPS
+               else "other")
+        cls[key] += n
+    cls["total"] = sum(counts.values())
+    return cls
+
+
+# (regime, codewords, S4): the reference's two dispatch regimes, each at a
+# row of whole 16-byte columns and at an odd S4
+GF_CHECK_SHAPES = (("narrow", 37, 300), ("narrow odd", 37, 301),
+                   ("wide", 5, 2500), ("wide odd", 5, 2501))
+
+
+def gf_check_matrices(gf256) -> dict:
+    """The GF(2^8) matrices the kernel check runs: every (k, r) the port
+    launches (encode, degraded-read rows 1..m, full decode, at RS(8,4)
+    and RS(4,2)) and two the kernel has no instantiation for."""
+    dec8 = gf256.rs_decode_matrix(8, 4, [0, 1, 3, 4, 7, 8, 10, 11])
+    dec4 = gf256.rs_decode_matrix(4, 2, [0, 2, 4, 5])
+
+    def rows(d, sel):
+        return np.ascontiguousarray(d[sel])
+
+    return {
+        "encode RS(8,4)": gf256.rs_parity_matrix(8, 4),
+        "decode RS(8,4) rows [2]": rows(dec8, [2]),
+        "decode RS(8,4) rows [2,5]": rows(dec8, [2, 5]),
+        "decode RS(8,4) rows [2,5,6]": rows(dec8, [2, 5, 6]),
+        "decode RS(8,4)": dec8,
+        "encode RS(4,2)": gf256.rs_parity_matrix(4, 2),
+        "decode RS(4,2) rows [1]": rows(dec4, [1]),
+        "decode RS(4,2)": dec4,
+        "encode RS(6,3)": gf256.rs_parity_matrix(6, 3),
+        "encode RS(10,4)": gf256.rs_parity_matrix(10, 4),
+    }
 
 
 def gf_work(b: int, k: int, r: int, s4: int):
-    """(bytes, operations) of one GF apply: k rows read and r rows written
-    per codeword, and the constants; r x k GF(2^8) multiply-accumulates
-    per 4-byte column, one instruction each at best.  The bytes bound it:
-    the apply is memory-bound, as the kernel's source note says."""
+    """(bytes, ALU-only instructions, instructions) of one GF apply: k
+    rows read and r rows written per codeword, and the constants; r x k
+    GF(2^8) multiply-accumulates per 4-byte column, one xor-based (ALU)
+    instruction each at best.  The bytes bound it; the kernel's own
+    instruction count (its SASS census, gf_times) is what bounds the
+    kernel, as its source note says."""
     nbytes = 4 * b * s4 * (k + r) + 4 * r * k * 8
     ops = b * s4 * k * r
-    return nbytes, ops
+    return nbytes, ops, ops
 
 
 # --- phases --------------------------------------------------------------------
@@ -301,36 +455,41 @@ def phase_kernels(ctx) -> None:
     log(f"[kernels] blake2s odd lanes: B={len(odd)} row=16384 B bit-exact vs "
         f"plain version and hashlib (plain {oplain_ms:.1f} ms)")
 
-    # K2/K3: both regimes of the reference dispatch, encode and decode
-    present = [0, 1, 3, 4, 6, 7, 8, 9, 10, 11]   # shards 2 and 5 lost
-    dec = gf256.rs_decode_matrix(8, 4, present)
-    mats = {
-        "encode RS(4,2)": gf256.rs_parity_matrix(4, 2),
-        "encode RS(8,4)": mat,
-        "decode RS(8,4)": dec,
-        "decode RS(8,4) rows [2,5]": np.ascontiguousarray(dec[[2, 5]]),
-    }
-    for regime, (b, s4) in (("narrow S4<2048", (37, 300)),
-                            ("wide S4>=2048", (5, 2500))):
-        for label, m in mats.items():
-            k = m.shape[1]
+    # K2/K3: every instantiated (k, r) of the GF kernel and its runtime-
+    # (k, r) body, in both regimes of the reference dispatch (padded S4 <
+    # 2048 and >= 2048) and at odd S4 (the kernel's guarded tail), against
+    # the plain version and the numpy oracle
+    from garage_tpu_torch.ops.cuda_gf import INSTANTIATIONS, instantiation
+
+    gf_mats = gf_check_matrices(gf256)
+    covered = {instantiation(m.shape[1], m.shape[0]) for m in gf_mats.values()}
+    check(covered >= {f"k{k}r{r}" for k, r in INSTANTIATIONS},
+          f"the GF check misses instantiations: {sorted(covered)}")
+    for label, m in gf_mats.items():
+        r, k = m.shape
+        bodies = [instantiation(k, r), instantiation(k, r, runtime=True)]
+        for regime, b, s4 in GF_CHECK_SHAPES:
             x = rng.integers(0, 2**32, (b, k, s4), dtype=np.uint32)
             dx = torch.from_numpy(x.view(np.int32)).to(dev)
             K = consts_from_numpy(m, dev)
-            got = gf_apply(dx, K).cpu().numpy().view(np.uint32)
             plain = gf_apply_plain(dx, K).cpu().numpy().view(np.uint32)
             want = oracle.apply(m, x.view(np.uint8).reshape(b, k, 4 * s4))
-            check(np.array_equal(got, plain),
-                  f"gf kernel != plain version ({label}, {regime})")
-            check(np.array_equal(got.view(np.uint8).reshape(want.shape), want),
-                  f"gf kernel != numpy GF(2^8) ({label}, {regime})")
-            if label == "decode RS(8,4)" and regime.startswith("wide"):
+            check(np.array_equal(plain.view(np.uint8).reshape(want.shape),
+                                 want),
+                  f"gf plain version != numpy GF(2^8) ({label}, {regime})")
+            for body in bodies:
+                got = gf_apply(dx, K, runtime=body == "runtime")
+                got = got.cpu().numpy().view(np.uint32)
+                check(np.array_equal(got, plain),
+                      f"gf kernel {body} != plain version ({label}, {regime})")
+            if label == "decode RS(8,4)" and regime == "wide":
                 check(np.array_equal(got, np.asarray(
                     gf256.gf_matmul_blocks(m, x.view(np.uint8).reshape(
                         b, k, 4 * s4))).view(np.uint32).reshape(got.shape)),
                       "gf kernel != gf256.gf_matmul_blocks")
-            log(f"[kernels] gf_apply {label}, {regime}: B={b} k={k} S4={s4} "
-                f"bit-exact vs plain version and numpy GF(2^8)")
+        log(f"[kernels] gf_apply {label}: bodies {' and '.join(bodies)} "
+            f"bit-exact vs plain version and numpy GF(2^8) at "
+            f"{', '.join(f'B={b} S4={s4}' for _, b, s4 in GF_CHECK_SHAPES)}")
 
     # K2 at the scrub's shape: the batch above as (B/8, 8, S4) codewords
     groups = da.view(torch.int32).view(lanes // 8, 8, blk // 4)
@@ -478,10 +637,12 @@ def phase_main(ctx) -> dict:
         torch.cuda.synchronize()
         by_path[path] = {"blake2s": cuda_blake2s.launches,
                          "gf_apply": cuda_gf.launches,
-                         "fused_scrub": cuda_codec.fused_launches}
+                         "fused_scrub": cuda_codec.fused_launches,
+                         "gf_apply_by": dict(cuda_gf.launches_by)}
         for name in path_needs[path]:
             check(by_path[path][name] > 0,
                   f"kernel {name} was not launched on the {path} path")
+        check_gf_bodies(path, by_path[path]["gf_apply_by"])
 
     start_path()
     scrub_runs = []
@@ -583,7 +744,24 @@ def counts_now(mods) -> dict:
     cuda_blake2s, cuda_gf, cuda_codec, gf_tune = mods
     return {"blake2s": cuda_blake2s.launches, "gf_apply": cuda_gf.launches,
             "fused_scrub": cuda_codec.fused_launches,
-            "gf_tune": gf_tune.launches}
+            "gf_tune": gf_tune.launches,
+            "gf_apply_by": dict(cuda_gf.launches_by)}
+
+
+# the GF kernel body each path must run, and nothing else: the RS(8,4)
+# instantiation for scrub, PUT hashing + encode; the two-row decode (rows
+# [2, 5] of a codeword missing shards 2 and 5) for the degraded reads; the
+# runtime-(k, r) body nowhere
+GF_BODIES = {"scrub": {"k8r4"}, "put": {"k8r4"}, "decode": {"k8r2"},
+             "scrub_1024": {"k8r4"}, "prod_scrub_cold": {"k8r4"},
+             "prod_scrub_warm": {"k8r4"}, "prod_put": {"k8r4"},
+             "prod_decode": {"k8r2"}}
+
+
+def check_gf_bodies(path: str, by_body: dict) -> None:
+    ran = {body for body, n in by_body.items() if n}
+    check(ran == GF_BODIES[path], f"the {path} path ran GF bodies "
+          f"{sorted(ran)}, expected {sorted(GF_BODIES[path])}")
 
 
 def reset_counts(torch, mods) -> None:
@@ -653,6 +831,7 @@ def phase_production(ctx) -> dict:
         for name in path_needs[path]:
             check(by_path[path][name] > 0,
                   f"kernel {name} was not launched on the {path} path")
+        check_gf_bodies(path, by_path[path]["gf_apply_by"])
 
     def scrub_pass(path, bs, hs):
         before = snap()
@@ -848,22 +1027,127 @@ def phase_tune(ctx) -> dict:
     return res
 
 
-def phase_times(ctx, main: dict, prod: dict, tune: dict) -> list:
+def k1_chain_times(ctx, g_cycles: float) -> dict:
+    """K1 against its lane count: every message a full row (so the
+    longest chain is the same), at 8 lanes, at the scrub's lanes and at
+    one warp on each of the 132 SMs; each timed with the SM clock sampled
+    while it runs, beside one message's bound (b2s_message_ms) at
+    `g_cycles` per G."""
     torch = ctx["torch"]
     from garage_tpu_torch.ops.cuda_blake2s import blake2s_batch
-    from garage_tpu_torch.ops.cuda_gf import gf_apply
+    from garage_tpu_torch.tools.timing import SMS
+
+    da = ctx["k1_inputs"][0]
+    lanes, cols = da.shape
+    out = {}
+    for n in (8, lanes, SMS * 32):
+        data = da[:n] if n <= lanes else da.repeat(-(-n // lanes), 1)[:n]
+        ln = torch.full((n,), cols, dtype=torch.int32, device=da.device)
+        t, mhz = time_kernel_clocked(torch, lambda: blake2s_batch(data, ln))
+        dep = max(b2s_message_ms(np.full(n, cols), cols, g_cycles, mhz * 1e6))
+        out[n] = {"ms": t, "sm_clock_mhz": mhz, "message_bound_ms": dep}
+        log(f"[times] blake2s at {n} lanes x {cols} B (every row full): "
+            f"{t:.3f} ms, SM clock {mhz:.0f} MHz, one message's bound "
+            f"{dep:.3f} ms ({t and dep / t:.0%} of it)")
+        del data
+    return out
+
+
+def gf_times(ctx, reps: int) -> dict:
+    """The GF kernel's bodies timed with a cold L2 (each launch after a
+    write of a buffer larger than the L2, so every shape reads its inputs
+    from HBM) at the scrub shape (RS(8,4) encode) and the narrow shape
+    (1024 codewords of 4 KiB shards, decode rows [2,5]), each beside the
+    runtime-(k, r) body and its own warm-L2 time, with the SM clock; the
+    RS(8,8) full decode at the scrub shape; and the SASS census of the
+    instantiations that these ran, which turns a time into the ALU lanes
+    issued per SM per clock."""
+    torch = ctx["torch"]
+    dev = ctx["device"]
+    from garage_tpu_torch.ops import _build, gf256
+    from garage_tpu_torch.ops.cuda_gf import (consts_from_numpy, gf_apply,
+                                              gf_apply_plain)
+    from garage_tpu_torch.tools.timing import FLUSH_BYTES, SMS, queued_ms
+
+    groups, K_enc = ctx["gf_inputs"]
+    res = {}
+    dec = gf256.rs_decode_matrix(8, 4, [0, 1, 3, 4, 6, 7, 8, 9])
+    nrng = np.random.default_rng(SEED + 2)
+    nx = torch.from_numpy(nrng.integers(0, 2**32, (1024, 8, 1024),
+                                        dtype=np.uint32).view(np.int32)).to(dev)
+    nK = consts_from_numpy(np.ascontiguousarray(dec[[2, 5]]), dev)
+    nplain, res["narrow_plain_ms"] = time_host(
+        torch, lambda: gf_apply_plain(nx, nK))
+    check(torch.equal(gf_apply(nx, nK), nplain),
+          "gf kernel != plain version (narrow regime)")
+    K8 = consts_from_numpy(dec, dev)
+    flush = torch.empty((FLUSH_BYTES,), dtype=torch.uint8, device=dev)
+    cases = {"scrub": (groups, K_enc, "k8r4"), "narrow": (nx, nK, "k8r2"),
+             "full_decode": (groups, K8, "k8r8")}
+    for label, (x, K, body) in cases.items():
+        b, k, s4 = x.shape
+        r = K.shape[0]
+        t, mhz = time_kernel_clocked(torch, lambda: gf_apply(x, K), flush)
+        rt = queued_ms(lambda: gf_apply(x, K, runtime=True), 4 * reps, flush)
+        warm = queued_ms(lambda: gf_apply(x, K), 4 * reps)
+        bound = bound_ms(*gf_work(b, k, r, s4))
+        census = sass_census(_build._lib_path("gf_apply"),
+                             f"gf_apply_kernelILi{k}ELi{r}ELb1E")
+        row = {"shape": [b, k, s4], "r": r, "body": body, "ms": t,
+               "runtime_ms": rt, "warm_ms": warm, "sm_clock_mhz": mhz,
+               "bound_ms": bound[0], "bound_by": bound[1],
+               "share": bound[0] / t, "census": census}
+        threads = b * s4 // 4          # one 16-byte column each
+        if census:
+            cls = census_classes(census)
+            issued = cls["total"] - cls["uniform"]
+            row["per_thread"] = cls
+            secs_clocks = t / 1e3 * SMS * mhz * 1e6
+            row["alu_lanes_per_sm_clock"] = threads * cls["alu"] / secs_clocks
+            row["lanes_per_sm_clock"] = threads * issued / secs_clocks
+            row["issue_bound_ms"] = ops_ms(threads * cls["alu"],
+                                           threads * issued)
+        res[label] = row
+        log(f"[times] gf_apply {label} ({b}, {k}, {s4}) r={r}, cold L2: {body} "
+            f"{t:.4f} ms, runtime body {rt:.4f} ms, bound {bound[0]:.4f} ms "
+            f"({bound[1]}; {bound[0] / t:.0%} of it), SM clock {mhz:.0f} MHz; "
+            f"warm L2 {warm:.4f} ms")
+        if census:
+            top = sorted(census.items(), key=lambda kv: -kv[1])[:8]
+            log(f"[times]   SASS {body} per thread (4 columns): "
+                f"{json.dumps(row['per_thread'])}; top {json.dumps(dict(top))}; "
+                f"ALU lanes issued {row['alu_lanes_per_sm_clock']:.1f} and all "
+                f"lanes {row['lanes_per_sm_clock']:.1f} per SM per clock; issue "
+                f"bound of these instructions ({ALU_LANES_PER_SM_CLOCK} ALU / "
+                f"{ISSUE_LANES_PER_SM_CLOCK} issued lanes) "
+                f"{row['issue_bound_ms']:.4f} ms")
+        else:
+            log("[times]   SASS census: not available (cuobjdump)")
+    del nx, flush
+    return res
+
+
+def phase_times(ctx, main: dict, prod: dict, tune: dict) -> list:
+    torch = ctx["torch"]
+    from garage_tpu_torch.ops.cuda_blake2s import blake2s_batch, g_chain_cycles
+    from garage_tpu_torch.tools.timing import queued_ms
 
     da, dl, lens = ctx["k1_inputs"]
     codec, _, _, de = ctx["k4_inputs"]
     groups, K_enc = ctx["gf_inputs"]
     lanes, cols = da.shape
     reps = ctx["reps"]
+    gf = gf_times(ctx, reps)
+    g_cycles = g_chain_cycles(ctx["device"])
+    log(f"[times] blake2s chain probe: {g_cycles:.3f} SM cycles per dependent "
+        f"G, {g_cycles / B2S_G_DEPTH:.3f} per dependent instruction")
+    b2s_ms, b2s_mhz = time_kernel_clocked(torch, lambda: blake2s_batch(da, dl))
     ms = {
-        "blake2s": time_kernel(torch, lambda: blake2s_batch(da, dl), reps),
-        "gf_apply": time_kernel(torch, lambda: gf_apply(groups, K_enc), 4 * reps),
-        "fused_scrub": time_kernel(
-            torch, lambda: codec.fused_scrub(da, dl, de), reps),
+        "blake2s": b2s_ms,
+        "gf_apply": gf["scrub"]["ms"],
+        "fused_scrub": queued_ms(lambda: codec.fused_scrub(da, dl, de), reps),
     }
+    chain = k1_chain_times(ctx, g_cycles)
     host = da.cpu().numpy()
     _, h2d_ms = time_host(torch, lambda: torch.from_numpy(host).to(ctx["device"]))
     parity = codec.fused_scrub(da, dl, de)[3]
@@ -871,38 +1155,26 @@ def phase_times(ctx, main: dict, prod: dict, tune: dict) -> list:
     # the 1024-lane device submission: the same batch four times over
     wda, wdl, wde = da.repeat(4, 1), dl.repeat(4), de.repeat(4, 1)
     wide_ms = {
-        "blake2s": time_kernel(torch, lambda: blake2s_batch(wda, wdl), reps),
-        "fused_scrub": time_kernel(
-            torch, lambda: codec.fused_scrub(wda, wdl, wde), reps),
+        "blake2s": queued_ms(lambda: blake2s_batch(wda, wdl), reps),
+        "fused_scrub": queued_ms(lambda: codec.fused_scrub(wda, wdl, wde),
+                                 reps),
     }
     del wda, wdl, wde
-    # the narrow regime (the reference's batch-folded K3 path, padded
-    # S4 < 2048): a repair storm of 4 KiB blocks, 1024 codewords each
-    # losing shards 2 and 5
-    from garage_tpu_torch.ops import gf256
-    from garage_tpu_torch.ops.cuda_gf import consts_from_numpy, gf_apply_plain
-
-    dec = gf256.rs_decode_matrix(8, 4, [0, 1, 3, 4, 6, 7, 8, 9])[[2, 5]]
-    nrng = np.random.default_rng(SEED + 2)
-    nx = torch.from_numpy(nrng.integers(0, 2**32, (1024, 8, 1024),
-                                        dtype=np.uint32).view(np.int32)
-                          ).to(ctx["device"])
-    nK = consts_from_numpy(np.ascontiguousarray(dec), ctx["device"])
-    narrow_ms = time_kernel(torch, lambda: gf_apply(nx, nK), 4 * reps)
-    nplain, narrow_plain_ms = time_host(torch, lambda: gf_apply_plain(nx, nK))
-    check(torch.equal(gf_apply(nx, nK), nplain),
-          "gf kernel != plain version (narrow regime)")
-    narrow_bound = bound_ms(*gf_work(1024, 8, 2, 1024))
-    b_bytes, b_ops = b2s_work(lens, cols)
+    b_bytes, b_alu, b_ops = b2s_work(lens, cols)
+    b2s_chain, b2s_issue = b2s_message_ms(lens, cols, g_cycles, b2s_mhz * 1e6)
+    b2s_dep = max(b2s_chain, b2s_issue)
     b, k, s4 = groups.shape
-    g_bytes, g_ops = gf_work(b, k, K_enc.shape[0], s4)
+    r = K_enc.shape[0]
+    g_bytes, g_alu, g_ops = gf_work(b, k, r, s4)
     # the fused function reads every data byte once (the GF apply reads
     # all columns), the lengths and expected digests, and writes digests,
-    # ok flags and parity
-    r = K_enc.shape[0]
+    # ok flags and parity; it runs K1, whose longest message bounds it too
     fused_bytes = lanes * cols + lanes * (4 + 32 + 32 + 1) + 4 * b * r * s4
-    work = {"blake2s": (b_bytes, b_ops), "gf_apply": (g_bytes, g_ops),
-            "fused_scrub": (fused_bytes, b_ops + g_ops + lanes * 8)}
+    work = {"blake2s": (b_bytes, b_alu, b_ops),
+            "gf_apply": (g_bytes, g_alu, g_ops),
+            "fused_scrub": (fused_bytes, b_alu + g_alu + lanes * 8,
+                            b_ops + g_ops + lanes * 8)}
+    dep = {"blake2s": b2s_dep, "gf_apply": 0.0, "fused_scrub": b2s_dep}
     meta = {
         "blake2s": ("garage_tpu_torch/csrc/blake2s.cu",
                     "garage_tpu/ops/pallas_blake2s.py:124"),
@@ -911,10 +1183,23 @@ def phase_times(ctx, main: dict, prod: dict, tune: dict) -> list:
         "fused_scrub": ("garage_tpu_torch/ops/cuda_codec.py",
                         "garage_tpu/ops/tpu_codec.py:678"),
     }
-    rows = []
+    extra = {
+        "blake2s": {"sm_clock_mhz": b2s_mhz, "g_chain_cycles": g_cycles,
+                    "ms_by_lanes": {str(n): c["ms"] for n, c in chain.items()}},
+        "gf_apply": {"runtime_ms": gf["scrub"]["runtime_ms"],
+                     "narrow_ms": gf["narrow"]["ms"],
+                     "narrow_runtime_ms": gf["narrow"]["runtime_ms"],
+                     "full_decode_ms": gf["full_decode"]["ms"],
+                     "launches_by_body": gf_bodies_launched(main, prod)},
+        "fused_scrub": {},
+    }
+    rows, bounds = [], {}
     by_path = {**main["launches_by_path"], **prod["launches_by_path"]}
     for name in CODEC_KERNELS:
-        bms, by = bound_ms(*work[name])
+        bms, by = bound_ms(*work[name], dep[name])
+        roof, roof_by = bound_ms(*work[name])
+        bounds[name] = {"roofline_ms": roof, "roofline_by": roof_by,
+                        "message_ms": dep[name]}
         rows.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],
@@ -922,12 +1207,22 @@ def phase_times(ctx, main: dict, prod: dict, tune: dict) -> list:
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": ctx["max_err"][name], "ms": ms[name],
             "plain_ms": ctx["plain_ms"][name], "bound_ms": bms,
-            "bound_by": by, "library_ms": None,
+            "bound_by": by, "library_ms": None, "share": bms / ms[name],
+            **extra[name],
         })
         log(f"[times] {name}: {ms[name]:.3f} ms on the card, bound "
-            f"{bms:.3f} ms ({by}; {work[name][0] / 2**20:.1f} MiB, "
-            f"{work[name][1] / 1e9:.2f} G instructions), plain version "
+            f"{bms:.3f} ms ({by}; roofline {roof:.3f} ms by {roof_by}, "
+            f"{work[name][0] / 2**20:.1f} MiB, {work[name][2] / 1e9:.2f} G "
+            f"instructions of which {work[name][1] / 1e9:.2f} G ALU-only"
+            + (f"; longest message {dep[name]:.3f} ms" if dep[name] else "")
+            + f"; {bms / ms[name]:.1%} of the bound), plain version "
             f"{ctx['plain_ms'][name]:.1f} ms, library call: none")
+    log(f"[times] blake2s longest message at {b2s_mhz:.0f} MHz: dependent "
+        f"chain {cols // 64} chunks x ({B2S_CHAIN_G_PER_CHUNK} G + 1 xor) at "
+        f"{g_cycles:.3f} cycles per G (measured) = {b2s_chain:.3f} ms; issue "
+        f"{cols // 64} chunks x {B2S_OPS_PER_CHUNK} instructions at one per "
+        f"clock = {b2s_issue:.3f} ms; the kernel runs at "
+        f"{b2s_dep / ms['blake2s']:.0%} of the larger")
     # T1: the fastest cell of the sweep, its variant's plain time at the
     # sweep's shape, the bytes bound, the launches of the sweep's path
     best = tune["best"]
@@ -947,7 +1242,8 @@ def phase_times(ctx, main: dict, prod: dict, tune: dict) -> list:
     })
     log(f"[times] gf_tune: best {best['tag']} {best['ms']:.4f} ms on the card, "
         f"bound {tune['bound_ms']:.4f} ms ({tune['bound_by']}), plain version "
-        f"({variant}) {ctx['tune_plain_ms'][variant]:.1f} ms, library call: none")
+        f"({variant}) {ctx['tune_plain_ms'][variant]:.1f} ms, library call: none; "
+        f"gf_apply on the same data {tune['gf_apply']['ms']:.4f} ms")
     batch_bytes = host.nbytes
     log(f"[times] pageable H2D of one {lanes} x {cols} B batch: {h2d_ms:.2f} ms "
         f"({batch_bytes / h2d_ms / 1e6:.2f} GB/s); pageable D2H of its parity "
@@ -956,15 +1252,23 @@ def phase_times(ctx, main: dict, prod: dict, tune: dict) -> list:
     log(f"[times] at {4 * lanes} lanes: blake2s {wide_ms['blake2s']:.3f} ms, "
         f"fused scrub {wide_ms['fused_scrub']:.3f} ms "
         f"({4 * batch_bytes / wide_ms['fused_scrub'] / 1e6:.1f} GB/s)")
-    log(f"[times] gf_apply narrow regime (1024, 8, 1024) decode rows [2,5]: "
-        f"{narrow_ms:.3f} ms on the card, bound {narrow_bound[0]:.3f} ms "
-        f"({narrow_bound[1]}), plain version {narrow_plain_ms:.1f} ms")
+    log(f"[times] gf_apply narrow plain version {gf['narrow_plain_ms']:.1f} ms")
     ctx["summary"] = {"ms": ms, "wide_ms": wide_ms, "h2d_ms": h2d_ms,
-                      "narrow_ms": narrow_ms, "narrow_plain_ms": narrow_plain_ms,
-                      "narrow_bound_ms": narrow_bound[0],
-                      "d2h_parity_ms": d2h_ms, "batch_bytes": batch_bytes,
-                      "work": work}
+                      "gf": gf, "k1_by_lanes": chain, "g_chain_cycles": g_cycles,
+                      "bounds": bounds, "k1_chain_ms": b2s_chain,
+                      "k1_issue_ms": b2s_issue, "d2h_parity_ms": d2h_ms,
+                      "batch_bytes": batch_bytes, "work": work}
     return rows
+
+
+def gf_bodies_launched(main: dict, prod: dict) -> dict:
+    """GF kernel launches by body over the main and production paths."""
+    total = {}
+    for paths in (main["launches_by_path"], prod["launches_by_path"]):
+        for counts in paths.values():
+            for body, n in counts.get("gf_apply_by", {}).items():
+                total[body] = total.get(body, 0) + n
+    return total
 
 
 def nvidia_smi_line() -> str:

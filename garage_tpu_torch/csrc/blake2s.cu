@@ -17,8 +17,9 @@
 // every SM is busy (moving the bytes takes ~1.5x less).  At the
 // scrub's 256 messages only 8 warps exist on 132 SMs: the kernel then runs
 // at a few percent of that bound, limited by one warp's dependent
-// instruction chain, and no layout change fixes that short of splitting
-// messages (a tree mode, which would change the hash).  What the design
+// instruction chain (chain_probe_kernel below measures its latency), and
+// no layout change fixes that short of splitting messages (a tree mode,
+// which would change the hash).  What the design
 // does about the rest: the 8 state and 16 working words stay in
 // registers across all chunks (the Pallas kernel's VMEM-resident state),
 // all 10 rounds x 8 G are unrolled with the message schedule resolved at
@@ -142,6 +143,26 @@ __global__ void blake2s_kernel(const uint8_t* __restrict__ data,
   for (int w = 0; w < 8; ++w) out[lane * 8 + w] = h[w];
 }
 
+// The latency behind the kernel's dependency bound, measured: one warp
+// runs `ng` G's back to back on one state, each G's first add waiting on
+// the last rotate of the G before, so the ng x 12 instructions are one
+// dependent chain of the kernel's own instruction mix.  Thread 0 writes
+// the SM clock cycles the chain took; every thread writes its state so
+// that none of the chain is dead code.
+__global__ void chain_probe_kernel(const uint32_t* __restrict__ seed,
+                                   uint32_t* __restrict__ out,
+                                   long long* __restrict__ cycles, int ng) {
+  const uint32_t* s = seed + 6 * threadIdx.x;
+  uint32_t a = s[0], b = s[1], c = s[2], d = s[3];
+  const uint32_t x = s[4], y = s[5];
+  const long long t0 = clock64();
+#pragma unroll 16
+  for (int j = 0; j < ng; ++j) B2S_G(a, b, c, d, x, y);
+  const long long t1 = clock64();
+  out[threadIdx.x] = a ^ b ^ c ^ d;
+  if (threadIdx.x == 0) *cycles = t1 - t0;
+}
+
 }  // namespace
 
 // Launches the kernel on `stream` without synchronising; returns the
@@ -155,5 +176,16 @@ extern "C" int blake2s_launch(const void* data, const void* lengths, void* out,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(data), static_cast<const int32_t*>(lengths),
       static_cast<uint32_t*>(out), nmsg, row_bytes);
+  return int(cudaGetLastError());
+}
+
+// seed (32 x 6) u32, out (32,) u32, cycles (1,) i64 on the device: one
+// warp of chain_probe_kernel over `ng` G's, on `stream` without
+// synchronising; returns the cudaError_t of the launch.
+extern "C" int blake2s_chain_probe_launch(const void* seed, void* out,
+                                          void* cycles, int ng, void* stream) {
+  chain_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(seed), static_cast<uint32_t*>(out),
+      static_cast<long long*>(cycles), ng);
   return int(cudaGetLastError());
 }

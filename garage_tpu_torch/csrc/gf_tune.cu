@@ -26,10 +26,12 @@
 // Bound on the H100: HBM.  At the sweep's shape (k = 8, r = 4, n = 2^20)
 // the function reads 32 MiB and writes 16 MiB, ~0.015 ms at 3.35 TB/s,
 // while its r*k GF multiply-accumulates per 4-byte column come to 34 M
-// instructions at least, ~0.001 ms at the SMs' issue rate.  The mask forms
+// instructions at least, ~0.002 ms at the SMs' ALU rate.  The mask forms
 // issue far more than that (8k masks and 8k*r and/xor pairs per column),
 // which is what the sweep measures; this kernel is simple on purpose.
-// Folding the winner into csrc/gf_apply.cu is later work.
+// csrc/gf_apply.cu took the `acc` order from it and goes further ((k, r)
+// fixed at compile time, 16-byte columns, one LOP3 per term); the sweep
+// times it beside these cells as the yardstick.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -8,7 +8,8 @@ as int32 tensors holding the uint32 words.  The TPU wrapper's
 
 A tensor on the CPU takes the plain version (``ops/blake2s.py``); a
 tensor on a CUDA device launches the kernel on the current stream, or
-raises.  ``launches`` counts kernel launches.
+raises.  ``launches`` counts kernel launches.  ``g_chain_cycles`` measures
+the dependent-issue latency behind the kernel's dependency bound.
 """
 
 from __future__ import annotations
@@ -40,8 +41,47 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
         lib.blake2s_launch.restype = ctypes.c_int
+        lib.blake2s_chain_probe_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p]
+        lib.blake2s_chain_probe_launch.restype = ctypes.c_int
         _configured = True
     return lib
+
+
+# the chain probe's two lengths in G: their difference cancels the fixed
+# cost of a launch and of reading the clock
+PROBE_G = (1024, 1024 + 65536)
+
+
+def g_chain_cycles(device) -> float:
+    """SM clock cycles per G of the kernel's G when each G waits on the
+    one before (12 dependent instructions: two three-input adds, four
+    xors, four rotates, two adds), measured on `device` by the source's
+    chain probe: one warp, at the two lengths of PROBE_G, the difference
+    of their cycles over the difference of the lengths.  Not a kernel of
+    the codec's path: its launches are not counted.  Needs a CUDA
+    device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the chain probe runs on a CUDA device, not {device}")
+    gen = torch.Generator().manual_seed(5)
+    seed = torch.randint(-2**31, 2**31, (32, 6), dtype=torch.int32,
+                         generator=gen).to(device)
+    out = torch.empty(32, dtype=torch.int32, device=device)
+    lib = _lib()
+    cycles = []
+    with torch.cuda.device(device):
+        for n in PROBE_G:
+            cyc = torch.zeros(1, dtype=torch.int64, device=device)
+            rc = lib.blake2s_chain_probe_launch(
+                seed.data_ptr(), out.data_ptr(), cyc.data_ptr(), n,
+                torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"chain_probe_kernel launch failed: "
+                                   f"cudaError {rc}")
+            cycles.append(int(cyc.item()))
+    return (cycles[1] - cycles[0]) / (PROBE_G[1] - PROBE_G[0])
 
 
 def _threads(nmsg: int) -> int:

@@ -8,17 +8,26 @@ of the Pallas dispatch regimes (``_apply_batched`` for wide shards,
 
 Math, bit-identical to ``reference_apply`` (numpy, byte domain):
   out[c, p] = XOR_{i<k, b<8} ((x[c, i] >> b) & 0x01010101) * K[p, i, b]
-with K[p, i, b] = gfmul(M[p, i], 2^b) from ``gf_scalar_consts``.
+with K[p, i, b] = gfmul(M[p, i], 2^b) from ``gf_scalar_consts``.  The
+kernel computes the same sum as mask(x, b) & (K * 0x01010101), mask
+holding 0xFF in each byte whose bit b is set (see its source note).
 
-A tensor on the CPU takes the plain version (``gf_apply_plain``); a
-tensor on a CUDA device launches the kernel on the current stream, or
-raises.  ``launches`` counts kernel launches.
+The kernel is compiled for each (k, r) in ``INSTANTIATIONS`` (the port's
+encode, degraded-read and full-decode shapes at RS(8,4) and RS(4,2), read
+from the kernel's source, which holds the one list of them); any
+other (k, r), or ``runtime=True``, takes its runtime-(k, r) body
+(``instantiation`` names the choice).  A tensor on the CPU takes the
+plain version (``gf_apply_plain``); a tensor on a CUDA device launches
+the kernel on the current stream, or raises.  ``launches`` counts kernel
+launches, ``launches_by`` counts them per instantiation.
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
 import threading
+from typing import Dict
 
 import numpy as np
 import torch
@@ -26,16 +35,43 @@ import torch
 from . import _build, gf256
 from .blake2s import i32_to_u32, u32_to_i32
 
+def _instantiations() -> tuple:
+    """The (k, r) compiled with both fixed, as the kernel's source lists
+    them in its GF_APPLY_INSTANTIATIONS macro (the one list of them)."""
+    text = (_build.CSRC / "gf_apply.cu").read_text()
+    body = re.search(r"#define GF_APPLY_INSTANTIATIONS\(X\)\s*\\\s*\n(.*)\n",
+                     text)
+    if body is None:
+        raise RuntimeError("csrc/gf_apply.cu defines no GF_APPLY_INSTANTIATIONS")
+    return tuple((int(k), int(r)) for k, r in
+                 re.findall(r"X\((\d+),\s*(\d+)\)", body.group(1)))
+
+
+# encode at RS(8,4) and RS(4,2), degraded-read decode of 1..m rows and the
+# full decode (r = k) at k = 8 and k = 4
+INSTANTIATIONS = _instantiations()
+RUNTIME = "runtime"
+ALIGN = 16          # bytes: the kernel reads and writes 16-byte columns
+
 launches = 0
+launches_by: Dict[str, int] = {}
 _count_lock = threading.Lock()
 _configured = False
-THREADS = 256
 
 
 def reset_launches() -> None:
     global launches
     with _count_lock:
         launches = 0
+        launches_by.clear()
+
+
+def instantiation(k: int, r: int, runtime: bool = False) -> str:
+    """Which body of the kernel a (k, r) apply launches: "k{k}r{r}" for
+    an instantiated pair, else (or when `runtime`) "runtime"."""
+    if runtime or (k, r) not in INSTANTIATIONS:
+        return RUNTIME
+    return f"k{k}r{r}"
 
 
 def gf_scalar_consts(mat: np.ndarray) -> np.ndarray:
@@ -102,16 +138,13 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def gf_apply(x: torch.Tensor, consts: torch.Tensor) -> torch.Tensor:
-    """x (B, k, S4) int32 contiguous, consts (r, k, 8) int32 contiguous
-    on the same device → (B, r, S4) int32."""
-    if x.device.type == "cpu":
-        return gf_apply_plain(x, consts)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+def check_args(x: torch.Tensor, consts: torch.Tensor) -> None:
+    """Raise ValueError unless the kernel takes these arguments: x
+    (B, k, S4) int32, contiguous and 16-byte aligned, consts (r, k, 8)
+    int32 contiguous on x's device."""
     if x.dtype != torch.int32 or x.dim() != 3:
         raise ValueError(f"x must be 3-D int32, got {x.dtype} {tuple(x.shape)}")
-    b, k, s4 = x.shape
+    k = x.shape[1]
     if (consts.dtype != torch.int32 or consts.dim() != 3
             or consts.shape[1] != k or consts.shape[2] != 8
             or consts.device != x.device):
@@ -120,20 +153,40 @@ def gf_apply(x: torch.Tensor, consts: torch.Tensor) -> torch.Tensor:
                          f"{consts.device}")
     if not (x.is_contiguous() and consts.is_contiguous()):
         raise ValueError("x and consts must be contiguous")
+    if x.data_ptr() % ALIGN:
+        raise ValueError(f"x must be {ALIGN}-byte aligned")
+
+
+def gf_apply(x: torch.Tensor, consts: torch.Tensor,
+             runtime: bool = False) -> torch.Tensor:
+    """x (B, k, S4) int32 contiguous, consts (r, k, 8) int32 contiguous
+    on the same device → (B, r, S4) int32.  On the card, the (k, r)
+    instantiation or, for any other pair or with `runtime`, the
+    runtime-(k, r) body."""
+    if x.device.type == "cpu":
+        return gf_apply_plain(x, consts)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    check_args(x, consts)
+    b, k, s4 = x.shape
     r = consts.shape[0]
     out = torch.empty((b, r, s4), dtype=torch.int32, device=x.device)
     if out.numel() == 0:
         return out
+    body = instantiation(k, r, runtime)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gf_apply_launch(x.data_ptr(), consts.data_ptr(),
-                                 out.data_ptr(), b, s4, k, r, THREADS, stream)
+                                 out.data_ptr(), b, s4, k, r,
+                                 int(body == RUNTIME), stream)
     if rc != 0:
-        raise RuntimeError(f"gf_apply_kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"gf_apply_kernel ({body}) launch failed: "
+                           f"cudaError {rc}")
     global launches
     with _count_lock:
         launches += 1
+        launches_by[body] = launches_by.get(body, 0) + 1
     return out
 
 

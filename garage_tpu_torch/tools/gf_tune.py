@@ -11,8 +11,9 @@ thread block: 4096, 8192, 16384).  Every cell is checked bit for bit
 against the numpy GF(2^8) oracle first, then timed with CUDA events over
 many launches after a warm-up, each launch after a write of a 64 MiB
 scratch buffer so the 48 MiB the function moves come from HBM, not from
-the 50 MB L2.  The production kernel (``csrc/gf_apply.cu`` through
-``ops/cuda_gf.gf_apply``) runs on the same codewords as the yardstick.
+the 50 MB L2 (``tools/timing.py`` ``queued_ms``).  The production kernel
+(``csrc/gf_apply.cu`` through ``ops/cuda_gf.gf_apply``) runs on the same
+codewords as the yardstick.
 
 Prints one JSON line: the card's name and power limit (nvidia-smi), the
 milliseconds and GiB/s (data bytes read, k x n x 4, per second, as the
@@ -43,6 +44,7 @@ import torch
 from ..ops import _build, gf256
 from ..ops.blake2s import i32_to_u32, u32_to_i32
 from ..ops.cuda_gf import consts_from_numpy, gf_apply, gf_scalar_consts
+from .timing import FLUSH_BYTES, HBM_BYTES_PER_S, queued_ms
 
 VARIANTS = ("orig", "acc", "accs")
 TILES = (4096, 8192, 16384)
@@ -52,8 +54,6 @@ SHAPES = ((8, 4), (4, 2))       # (k, r) the kernel is built for
 K, M = 8, 4
 BLOCK = 1 << 20
 NBLOCKS = 32                    # one group of 4 codewords, as the reference
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM (NVIDIA's data sheet)
-FLUSH_BYTES = 64 << 20          # more than the 50 MB L2
 
 launches = 0
 _count_lock = threading.Lock()
@@ -195,25 +195,6 @@ def staged_group(device, seed: int = 7, nblocks: int = NBLOCKS,
     return u32, xflat, cw, masks, scalar, mat
 
 
-def time_cold(fn, reps: int, flush: torch.Tensor) -> float:
-    """Mean milliseconds of fn() on the card with a cold L2: a warm-up
-    call, then `reps` launches each timed between two CUDA events right
-    after a write of `flush` (larger than the L2)."""
-    fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(reps):
-        flush.zero_()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        pairs.append((a, b))
-    torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in pairs) / reps
-
-
 def bound(k: int, r: int, n: int) -> Dict[str, float]:
     """The least time the card could take: each input word read once,
     each output word written once, over the HBM rate (the operations, r*k
@@ -243,13 +224,13 @@ def sweep(device, reps: int = 50, variants=VARIANTS, tiles=TILES,
             got = gf_tune(xflat, masks, variant, tile).cpu().numpy()
             if not np.array_equal(unfold(got.view("<u4"), ncw), want_u32):
                 raise RuntimeError(f"gf_tune {tag}: wrong result")
-            ms = time_cold(lambda: gf_tune(xflat, masks, variant, tile), reps,
+            ms = queued_ms(lambda: gf_tune(xflat, masks, variant, tile), reps,
                            flush)
             cells[tag] = {"ms": ms, "gibs": data_bytes / (ms / 1e3) / 2**30}
     got = gf_apply(cw, scalar).cpu().numpy()
     if not np.array_equal(got.view("<u4"), want_u32):
         raise RuntimeError("gf_apply: wrong result")
-    ms = time_cold(lambda: gf_apply(cw, scalar), reps, flush)
+    ms = queued_ms(lambda: gf_apply(cw, scalar), reps, flush)
     best = min(cells, key=lambda t: cells[t]["ms"])
     return {"shape": [k, n], "codewords": ncw, "reps": reps,
             "cells": cells,

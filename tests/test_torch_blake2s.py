@@ -119,3 +119,11 @@ def test_wrapper_takes_plain_version_on_cpu_only():
     meta = torch.empty((2, 64), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_blake2s.blake2s_batch(meta, torch.zeros(2, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_chain_probe_needs_a_cuda_device(device):
+    """The dependent-latency probe measures the card; it has no plain
+    version to fall back to."""
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda_blake2s.g_chain_cycles(device)

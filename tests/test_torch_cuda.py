@@ -61,6 +61,15 @@ def test_blake2s_kernel_matches_plain(gpu):
         cuda_blake2s.blake2s_batch(da, dl.to(torch.int64))
 
 
+def test_chain_probe_measures_a_dependent_chain(gpu):
+    """The probe's cycles per G: 12 dependent instructions, each at least
+    one cycle and well under 20; it is not counted as a K1 launch."""
+    before = cuda_blake2s.launches
+    cycles = cuda_blake2s.g_chain_cycles(gpu)
+    assert 12 <= cycles <= 240
+    assert cuda_blake2s.launches == before
+
+
 @pytest.mark.parametrize("s4", [300, 2500])
 def test_gf_kernel_matches_plain_both_regimes(gpu, s4):
     rng = np.random.default_rng(s4)
@@ -77,6 +86,34 @@ def test_gf_kernel_matches_plain_both_regimes(gpu, s4):
         assert torch.equal(got, cuda_gf.gf_apply_plain(dx, K))
         assert np.array_equal(got.cpu().numpy().view(np.uint32),
                               cuda_gf.reference_apply(mat, x))
+
+
+@pytest.mark.parametrize("s4", [300, 301, 2500, 2501])
+@pytest.mark.parametrize("kr", list(cuda_gf.INSTANTIATIONS)
+                         + [(6, 3), (10, 5), (2, 1)])
+def test_gf_bodies_match_plain(gpu, kr, s4):
+    """Every instantiated (k, r) and a few others, both regimes, odd S4
+    (the guarded tail): the body the wrapper picks and the runtime-(k, r)
+    body, each against the plain version and the numpy oracle."""
+    k, r = kr
+    rng = np.random.default_rng(1000 * k + 10 * r + s4)
+    mat = rng.integers(0, 256, (r, k), dtype=np.uint8)
+    x = rng.integers(0, 2**32, (9, k, s4), dtype=np.uint32)
+    dx = torch.from_numpy(x.view(np.int32)).to(gpu)
+    K = cuda_gf.consts_from_numpy(mat, gpu)
+    plain = cuda_gf.gf_apply_plain(dx, K)
+    want = cuda_gf.reference_apply(mat, x)
+    for runtime in (False, True):
+        body = cuda_gf.instantiation(k, r, runtime)
+        before = cuda_gf.launches_by.get(body, 0)
+        got = cuda_gf.gf_apply(dx, K, runtime=runtime)
+        torch.cuda.synchronize()
+        assert cuda_gf.launches_by[body] == before + 1
+        assert torch.equal(got, plain), body
+        assert np.array_equal(got.cpu().numpy().view(np.uint32), want), body
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_gf.gf_apply(torch.zeros(1 + 9 * k * s4, dtype=torch.int32,
+                                     device=gpu)[1:].view(9, k, s4), K)
 
 
 def test_fused_scrub_matches_cpu_codec(gpu):
