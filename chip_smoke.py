@@ -21,7 +21,10 @@ Phases, each fatal on any mismatch or exception:
                   and at odd S4; the fused scrub at the
                   scrub's shape against one run of its plain version, whose
                   digests also hold K1's result at that shape; every
-                  variant of the GF tuning kernel (T1) at its sweep's shape.
+                  variant of the GF tuning kernel (T1) at every tile and
+                  both (k, r) it is built for, on 1 MiB blocks as its
+                  sweep stages them, and two launches it must refuse (a
+                  misaligned x, a (k, r) it is not built for).
   3. main       — the codec path of the first slice: make_codec("cuda",
                   rs_data=8, rs_parity=4) behind a CodecFeeder; 4 scrub
                   batches of 256 x 1 MiB blocks (1 GiB, the last block of
@@ -44,8 +47,10 @@ Phases, each fatal on any mismatch or exception:
                   by side, stage seconds, cold and warm GiB/s, the pinned
                   H2D rate of one slot and collect's split.
   5. tune       — T1's path: tools/gf_tune.py's sweep of the GF kernel's
-                  loop orders x tiles, each cell checked and timed, beside
-                  the production GF kernel on the same codewords.
+                  loop orders x tiles, each cell checked and timed, with
+                  each variant's SASS census and the issue bound it
+                  implies, beside the production GF kernel on the same
+                  codewords.
   6. times      — each kernel's time (CUDA events, after a warm-up,
                   launches queued behind a sleep kernel: tools/timing.py)
                   beside its bound (the larger of bytes over 3.35 TB/s,
@@ -88,24 +93,14 @@ SEED = 20261016
 MIB = 1 << 20
 CODEC_KERNELS = ("blake2s", "gf_apply", "fused_scrub")
 KERNELS = CODEC_KERNELS + ("gf_tune",)
-# Operations bounds.  Only the SM's INT32 ALU pipe runs the xors,
-# rotates, byte permutes and logic of these kernels (LOP3, SHF, PRMT): 64
-# lanes per SM per clock (the Hopper architecture white paper: 64 INT32
-# beside 128 FP32 lanes per SM; the CUDA guide's throughput table for
-# compute capability 9.0: 64 results per SM per clock for 32-bit integer
-# add, shift, compare and logic).  Adds and shifts can also run on the FMA
-# pipe as IMAD (the GF kernel's SASS has its shifts there, as IMAD.SHL),
-# so all integer instructions together are capped by the issue of one
-# warp instruction per clock by each of the SM's 4 schedulers: 128 lanes.
-# The least time for integer work is therefore the larger of its ALU-only
-# instructions over 64 lanes and all its instructions over 128, x 132 SMs
-# x 1.98 GHz (tools/timing.py holds the card's peaks).  phase_times checks
+# Operations bounds: the larger of a kernel's ALU-only integer
+# instructions over the SMs' 64 ALU lanes and all of them over the 128
+# lanes the schedulers issue, x 132 SMs x 1.98 GHz (tools/timing.py
+# ``ops_ms``, which says where the rates come from).  phase_times checks
 # the ALU rate on the card: the SASS census of the GF kernel's RS(8,4) and
 # RS(8,8) bodies, whose ALU work outweighs their bytes, over their
 # measured times gives the ALU lanes issued per SM per clock; on an H100
 # at 700 W both came to ~57 (PERF.md), below 64.
-ALU_LANES_PER_SM_CLOCK = 64
-ISSUE_LANES_PER_SM_CLOCK = 128
 # BLAKE2s per 64-byte chunk, in the fewest 32-bit instructions: a G is 4
 # three-input adds (a + b + m is one IADD3), 4 xors and 4 rotates (one
 # funnel shift each), 12 in all; 80 G, the counter and flag words (an xor
@@ -200,21 +195,11 @@ def stage_delta(before: dict, after: dict) -> dict:
             if v - before.get(k, 0.0) > 0}
 
 
-def ops_ms(alu_ops: float, ops: float) -> float:
-    """The least milliseconds for integer work of `ops` instructions, of
-    which `alu_ops` run only on the ALU pipe (see ALU_LANES_PER_SM_CLOCK)."""
-    from garage_tpu_torch.tools.timing import SM_CLOCK_HZ, SMS
-
-    lanes = max(alu_ops / ALU_LANES_PER_SM_CLOCK,
-                ops / ISSUE_LANES_PER_SM_CLOCK)
-    return lanes / (SMS * SM_CLOCK_HZ) * 1e3
-
-
 def bound_ms(nbytes: float, alu_ops: float, ops: float, dep_ms: float = 0.0):
     """(bound in ms, "bytes" or "operations"): the larger of the bytes
     over the HBM rate and the operations' least time, itself the larger of
     their issue (ops_ms) and their longest dependent chain (`dep_ms`)."""
-    from garage_tpu_torch.tools.timing import HBM_BYTES_PER_S
+    from garage_tpu_torch.tools.timing import HBM_BYTES_PER_S, ops_ms
 
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = max(ops_ms(alu_ops, ops), dep_ms)
@@ -266,57 +251,6 @@ def time_kernel_clocked(torch, fn, flush=None):
     samples = [float(x) for x in out.split() if x.replace(".", "").isdigit()]
     check(bool(samples), "nvidia-smi gave no clocks.sm sample")
     return ms, float(np.median(samples))
-
-
-# SASS opcodes by the SM pipe that runs them (integer ALU, FMA, memory)
-ALU_OPS = {"LOP3", "PRMT", "SHF", "IADD3", "LEA", "ISETP", "SEL", "PLOP3",
-           "MOV", "SGXT", "IABS", "IMNMX", "FLO", "POPC", "BREV", "S2R",
-           "CS2R", "S2UR"}
-FMA_OPS = {"IMAD", "FMUL", "FADD", "FFMA"}
-MEM_OPS = {"LDG", "STG", "LDS", "STS", "LD", "ST", "LDC", "ULDC"}
-
-
-def sass_census(lib_path, symbol_part: str):
-    """Instruction counts by opcode of one kernel's SASS in a built
-    library (cuobjdump -sass), the kernel picked by a part of its mangled
-    name; None when cuobjdump is missing or finds no such kernel."""
-    import re
-    from garage_tpu_torch.ops import _build
-
-    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
-    if not tool.exists():
-        return None
-    out = subprocess.run([str(tool), "-sass", str(lib_path)],
-                         capture_output=True, text=True, timeout=300)
-    if out.returncode != 0:
-        return None
-    counts, inside = {}, False
-    op_re = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
-    for line in out.stdout.splitlines():
-        if "Function :" in line:
-            inside = symbol_part in line
-            continue
-        if not inside:
-            continue
-        m = op_re.search(line)
-        if m:
-            op = m.group(1).split(".")[0]
-            if op not in ("NOP",):
-                counts[op] = counts.get(op, 0) + 1
-    return counts or None
-
-
-def census_classes(counts: dict) -> dict:
-    """Instructions per thread by pipe class from a sass_census."""
-    cls = {"alu": 0, "fma": 0, "mem": 0, "uniform": 0, "other": 0}
-    for op, n in counts.items():
-        # U* run once per warp on the uniform datapath, not on the lanes
-        key = ("uniform" if op.startswith("U") else "alu" if op in ALU_OPS
-               else "fma" if op in FMA_OPS else "mem" if op in MEM_OPS
-               else "other")
-        cls[key] += n
-    cls["total"] = sum(counts.values())
-    return cls
 
 
 # (regime, codewords, S4): the reference's two dispatch regimes, each at a
@@ -525,30 +459,55 @@ def phase_kernels(ctx) -> None:
         "mismatches) bit-exact vs its plain version (digests, ok, count, "
         f"parity), hashlib and numpy GF(2^8) (plain {fused_plain_ms:.1f} ms)")
 
-    # T1: every variant of the sweep's kernel at T1's shape, (8, 2^20)
-    # words of 4 codewords folded flat, at one tile, against its plain
-    # version (the variant's loop order) and the numpy oracle
+    # T1: every variant of the sweep's kernel at every tile, at both (k, r)
+    # it is built for, on 1 MiB blocks folded flat as the sweep stages
+    # them, against its plain version (the variant's loop order) and the
+    # numpy oracle; then the launches it must refuse
     from garage_tpu_torch.tools import gf_tune
 
-    u32, xflat, _cw, masks, _scalar, tmat = gf_tune.staged_group(dev)
-    ncw = u32.shape[0]
-    t_want = oracle.apply(tmat, u32.view(np.uint8).reshape(
-        ncw, 8, -1)).view("<u4").reshape(ncw, 4, -1)
     tune_err, tune_plain_ms = 0, {}
-    for variant in gf_tune.VARIANTS:
-        got = gf_tune.gf_tune(xflat, masks, variant, 4096)
-        plain, tune_plain_ms[variant] = time_host(
-            torch, lambda: gf_tune.gf_tune_plain(xflat, masks, variant))
-        err = max_abs_err(got.cpu().numpy().view(np.uint32),
-                          plain.cpu().numpy().view(np.uint32))
-        check(err == 0, f"gf_tune {variant} != its plain version")
-        check(np.array_equal(gf_tune.unfold(got.cpu().numpy().view("<u4"), ncw),
-                             t_want), f"gf_tune {variant} != numpy GF(2^8)")
-        tune_err = max(tune_err, err)
-        log(f"[kernels] gf_tune {variant} tile 4096 at {tuple(xflat.shape)}: "
-            f"bit-exact vs plain version and numpy GF(2^8) (plain "
-            f"{tune_plain_ms[variant]:.1f} ms)")
-    del xflat, masks, _cw
+    for k, r in gf_tune.SHAPES:
+        u32, xflat, _cw, masks, _scalar, tmat = gf_tune.staged_group(dev, k, r)
+        ncw = u32.shape[0]
+        t_want = oracle.apply(tmat, u32.view(np.uint8).reshape(
+            ncw, k, -1)).view("<u4").reshape(ncw, r, -1)
+        for variant in gf_tune.VARIANTS:
+            plain, ms = time_host(
+                torch, lambda: gf_tune.gf_tune_plain(xflat, masks, variant))
+            if (k, r) == (gf_tune.K, gf_tune.M):
+                tune_plain_ms[variant] = ms
+            plain = plain.cpu().numpy().view(np.uint32)
+            check(np.array_equal(gf_tune.unfold(plain.view("<u4"), ncw), t_want),
+                  f"gf_tune plain {variant} k{k}r{r} != numpy GF(2^8)")
+            for tile in gf_tune.KERNEL_TILES:
+                got = gf_tune.gf_tune(xflat, masks, variant, tile)
+                err = max_abs_err(got.cpu().numpy().view(np.uint32), plain)
+                check(err == 0, f"gf_tune {variant} k{k}r{r} t{tile} != its "
+                      "plain version")
+                tune_err = max(tune_err, err)
+            log(f"[kernels] gf_tune {variant} k{k}r{r} at {tuple(xflat.shape)}, "
+                f"tiles {', '.join(map(str, gf_tune.KERNEL_TILES))}: bit-exact "
+                f"vs plain version and numpy GF(2^8) (plain {ms:.1f} ms)")
+    n = xflat.shape[1] - 128          # still a multiple of every tile
+    misaligned = xflat.view(-1)[1:1 + k * n].view(k, n)
+    refused = {      # (what must raise, a word of its text)
+        "misaligned x": (misaligned, masks, "aligned"),
+        f"(k, r) = ({k}, 1)": (xflat, masks[:1], "(k, r)"),
+    }
+    launched = gf_tune.launches
+    for label, (x, c, word) in refused.items():
+        try:
+            gf_tune.gf_tune(x, c, "acc", 128)
+        except ValueError as e:
+            check(word in str(e), f"gf_tune {label}: unexpected error {e}")
+            log(f"[kernels] gf_tune {label}: raises ValueError ({e})")
+        else:
+            fail(f"gf_tune launched with {label}")
+    check(gf_tune.launches == launched, "a refused gf_tune launch was counted")
+    check(torch.equal(gf_tune.gf_tune(xflat, masks, "acc", 4096),
+                      gf_tune.gf_tune_plain(xflat, masks, "acc")),
+          "gf_tune after a refused launch != its plain version")
+    del xflat, masks, _cw, misaligned
 
     ctx["k1_inputs"] = (da, dl, lens)
     ctx["k4_inputs"] = (codec, da, dl, de)
@@ -1017,9 +976,23 @@ def phase_tune(ctx) -> dict:
     torch.cuda.synchronize()
     res["launches"] = gf_tune.launches
     check(res["launches"] > 0, "kernel gf_tune was not launched on its path")
+    for variant, cen in res["census"].items():
+        if cen is None:
+            log(f"[tune] SASS census of {variant}: not available (cuobjdump)")
+            continue
+        top = sorted(cen["ops"].items(), key=lambda kv: -kv[1])[:8]
+        log(f"[tune] SASS {variant} per thread (one 16-byte column): "
+            f"{json.dumps(cen['classes'])}; per word {json.dumps(cen['per_word'])}"
+            f"; top {json.dumps(dict(top))}")
     for tag, cell in sorted(res["cells"].items()):
+        lanes = cell["alu_lanes_per_sm_clock"]
         log(f"[tune] {tag}: {cell['ms']:.4f} ms, {cell['gibs']:.1f} GiB/s of "
-            "data, bit-exact vs numpy GF(2^8)")
+            f"data, {res['bound_ms'] / cell['ms']:.1%} of the bytes bound, "
+            + (f"{cell['issue_bound_ms'] / cell['ms']:.1%} of the issue bound "
+               f"{cell['issue_bound_ms']:.4f} ms, {lanes:.1f} ALU lanes per SM "
+               "per clock, " if lanes else "")
+            + f"grid {cell['grid']} x {cell['block']}, bit-exact vs numpy "
+            "GF(2^8)")
     log(f"[tune] gf_apply on the same codewords: {res['gf_apply']['ms']:.4f} ms "
         f"({res['gf_apply']['gibs']:.1f} GiB/s); best {res['best']['tag']}; "
         f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}); "
@@ -1055,9 +1028,11 @@ def k1_chain_times(ctx, g_cycles: float) -> dict:
 
 def gf_times(ctx, reps: int) -> dict:
     """The GF kernel's bodies timed with a cold L2 (each launch after a
-    write of a buffer larger than the L2, so every shape reads its inputs
-    from HBM) at the scrub shape (RS(8,4) encode) and the narrow shape
-    (1024 codewords of 4 KiB shards, decode rows [2,5]), each beside the
+    read of a buffer larger than the L2, so every shape reads its inputs
+    from HBM, and timed until its output is written back:
+    tools/timing.py ``queued_ms``) at the scrub shape (RS(8,4) encode)
+    and the narrow shape (1024 codewords of 4 KiB shards, decode rows
+    [2,5]), each beside the
     runtime-(k, r) body and its own warm-L2 time, with the SM clock; the
     RS(8,8) full decode at the scrub shape; and the SASS census of the
     instantiations that these ran, which turns a time into the ALU lanes
@@ -1067,7 +1042,11 @@ def gf_times(ctx, reps: int) -> dict:
     from garage_tpu_torch.ops import _build, gf256
     from garage_tpu_torch.ops.cuda_gf import (consts_from_numpy, gf_apply,
                                               gf_apply_plain)
-    from garage_tpu_torch.tools.timing import FLUSH_BYTES, SMS, queued_ms
+    from garage_tpu_torch.tools.sass import census_classes, sass_census
+    from garage_tpu_torch.tools.timing import (ALU_LANES_PER_SM_CLOCK,
+                                               FLUSH_BYTES,
+                                               ISSUE_LANES_PER_SM_CLOCK, SMS,
+                                               ops_ms, queued_ms)
 
     groups, K_enc = ctx["gf_inputs"]
     res = {}
@@ -1241,7 +1220,8 @@ def phase_times(ctx, main: dict, prod: dict, tune: dict) -> list:
         "gf_apply_ms_same_data": tune["gf_apply"]["ms"],
     })
     log(f"[times] gf_tune: best {best['tag']} {best['ms']:.4f} ms on the card, "
-        f"bound {tune['bound_ms']:.4f} ms ({tune['bound_by']}), plain version "
+        f"bound {tune['bound_ms']:.4f} ms ({tune['bound_by']}), census issue "
+        f"bound {best['issue_bound_ms'] or float('nan'):.4f} ms, plain version "
         f"({variant}) {ctx['tune_plain_ms'][variant]:.1f} ms, library call: none; "
         f"gf_apply on the same data {tune['gf_apply']['ms']:.4f} ms")
     batch_bytes = host.nbytes

@@ -6,20 +6,27 @@ Counterpart of the reference's ``scripts/pallas_tune.py``: one group of
 32 blocks of 1 MiB — 4 RS(8,4) codewords — is staged on the card folded
 flat as x (k, n) = (8, 2^20) uint32, as the reference folds it
 (``pallas_tune.py:184-194``), and each loop-order variant of the GF apply
-(``csrc/gf_tune.cu``: orig, acc, accs) runs at each tile (columns per
-thread block: 4096, 8192, 16384).  Every cell is checked bit for bit
-against the numpy GF(2^8) oracle first, then timed with CUDA events over
-many launches after a warm-up, each launch after a write of a 64 MiB
-scratch buffer so the 48 MiB the function moves come from HBM, not from
-the 50 MB L2 (``tools/timing.py`` ``queued_ms``).  The production kernel
-(``csrc/gf_apply.cu`` through ``ops/cuda_gf.gf_apply``) runs on the same
-codewords as the yardstick.
+(``csrc/gf_tune.cu``: orig, acc, accs) runs at each tile (the columns one
+unit of the grid owns, as in the Pallas grid: 4096, 8192, 16384 words).
+A tile is split over blocks of 1024 words, so every tile launches the
+same 1024 blocks and fills the card (``launch_shape``).  Every launch is
+checked bit for bit against the numpy GF(2^8) oracle first, then timed
+with CUDA events over many launches after a warm-up, each launch after a
+read of a 64 MiB scratch buffer so the 32 MiB the function reads come
+from HBM, not from the 50 MB L2, and its window running on until the
+16 MiB it writes are back in HBM (``tools/timing.py`` ``queued_ms``).
+The production kernel (``csrc/gf_apply.cu`` through
+``ops/cuda_gf.gf_apply``) runs on the same codewords as the yardstick.
 
-Prints one JSON line: the card's name and power limit (nvidia-smi), the
-milliseconds and GiB/s (data bytes read, k x n x 4, per second, as the
-reference reported) of every cell and of gf_apply, the least time the
-card could take (bytes moved over 3.35 TB/s) and the fastest cell.
-Needs a CUDA device: without one it exits non-zero and prints no result.
+Prints one JSON line: the card's name and power limit (nvidia-smi), and
+for every cell its milliseconds and GiB/s (data bytes read, k x n x 4,
+per second, as the reference reported), its launch shape (grid, block,
+and cluster 1: no thread-block cluster), the least time its variant's
+instructions need on the SMs (``issue_bound_ms``, from the SASS census
+per thread under ``census``) and the ALU lanes it issued per SM per
+clock at 1.98 GHz; gf_apply's time, the least time the card could take
+(bytes moved over 3.35 TB/s) and the fastest cell.  Needs a CUDA
+device: without one it exits non-zero and prints no result.
 
 ``gf_tune`` is the kernel's wrapper and ``gf_tune_plain`` its plain
 PyTorch version, which follows each variant's loop order; a tensor on
@@ -31,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import subprocess
 import sys
@@ -44,16 +52,25 @@ import torch
 from ..ops import _build, gf256
 from ..ops.blake2s import i32_to_u32, u32_to_i32
 from ..ops.cuda_gf import consts_from_numpy, gf_apply, gf_scalar_consts
-from .timing import FLUSH_BYTES, HBM_BYTES_PER_S, queued_ms
+from .sass import census_classes, sass_census
+from .timing import (FLUSH_BYTES, HBM_BYTES_PER_S, SM_CLOCK_HZ, SMS, ops_ms,
+                     queued_ms)
 
 VARIANTS = ("orig", "acc", "accs")
 TILES = (4096, 8192, 16384)
-# the tiles the kernel is built for (128 serves small test shapes)
+# the tiles the kernel is launched at (128 serves small test shapes)
 KERNEL_TILES = (128,) + TILES
 SHAPES = ((8, 4), (4, 2))       # (k, r) the kernel is built for
 K, M = 8, 4
 BLOCK = 1 << 20
 NBLOCKS = 32                    # one group of 4 codewords, as the reference
+# the launch: a tile is split over blocks of BLOCK_WORDS consecutive words
+# (a smaller tile is one block), one 16-byte column (WORDS words) per
+# thread, at most MAX_THREADS threads (csrc/gf_tune.cu kMaxThreads)
+BLOCK_WORDS = 1024
+WORDS = 4
+MAX_THREADS = 256
+ALIGN = 16                      # bytes: a 16-byte column of x and out
 
 launches = 0
 _count_lock = threading.Lock()
@@ -119,30 +136,27 @@ def gf_tune_plain(x: torch.Tensor, consts: torch.Tensor,
     return u32_to_i32(torch.stack(accs))
 
 
-def _lib() -> ctypes.CDLL:
-    global _configured
-    lib = _build.load("gf_tune")
-    if not _configured:
-        lib.gf_tune_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
-        lib.gf_tune_launch.restype = ctypes.c_int
-        _configured = True
-    return lib
+def launch_shape(tile: int, n: int) -> Dict[str, int]:
+    """The kernel's launch at `tile` over n words: the tile split over
+    blocks of BLOCK_WORDS words (one block for a smaller tile), each
+    walking its 16-byte columns with `block` threads."""
+    if tile not in KERNEL_TILES or n % tile:
+        raise ValueError(f"tile {tile} must be one of {KERNEL_TILES} and "
+                         f"divide n = {n}")
+    block_words = min(tile, BLOCK_WORDS)
+    return {"grid": n // block_words,
+            "block": min(MAX_THREADS, block_words // WORDS),
+            "block_words": block_words}
 
 
-def gf_tune(x: torch.Tensor, consts: torch.Tensor, variant: str,
-            tile: int) -> torch.Tensor:
-    """x (k, n) int32 contiguous and consts (r, k, 8) int32 contiguous on
-    the same device → (r, n) int32, through `variant` at `tile` columns
-    per thread block (the plain version on the CPU)."""
+def check_args(x: torch.Tensor, consts: torch.Tensor, variant: str,
+               tile: int) -> None:
+    """Raise ValueError unless the kernel takes these arguments: x (k, n)
+    int32, contiguous, 16-byte aligned, consts (r, k, 8) int32 contiguous
+    on x's device, (k, r) one of SHAPES, a known variant, and a tile of
+    KERNEL_TILES that divides n."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}")
-    if x.device.type == "cpu":
-        return gf_tune_plain(x, consts, variant)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     if x.dtype != torch.int32 or x.dim() != 2:
         raise ValueError(f"x must be 2-D int32, got {x.dtype} {tuple(x.shape)}")
     k, n = x.shape
@@ -153,41 +167,86 @@ def gf_tune(x: torch.Tensor, consts: torch.Tensor, variant: str,
                          f"{consts.dtype} {tuple(consts.shape)} on "
                          f"{consts.device}")
     r = consts.shape[0]
-    if (k, r) not in SHAPES or tile not in KERNEL_TILES or n % tile:
-        raise ValueError(f"(k, r) = ({k}, {r}) must be one of {SHAPES} and "
-                         f"tile {tile} one of {KERNEL_TILES} dividing n = {n}")
+    if (k, r) not in SHAPES:
+        raise ValueError(f"(k, r) = ({k}, {r}) must be one of {SHAPES}")
+    launch_shape(tile, n)
     if not (x.is_contiguous() and consts.is_contiguous()):
         raise ValueError("x and consts must be contiguous")
-    out = torch.empty((r, n), dtype=torch.int32, device=x.device)
-    if n == 0:
-        return out
+    if x.data_ptr() % ALIGN:
+        raise ValueError(f"x must be {ALIGN}-byte aligned")
+
+
+def _lib() -> ctypes.CDLL:
+    global _configured
+    lib = _build.load("gf_tune")
+    if not _configured:
+        lib.gf_tune_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.gf_tune_launch.restype = ctypes.c_int
+        _configured = True
+    return lib
+
+
+def _launch(x: torch.Tensor, consts: torch.Tensor, out: torch.Tensor,
+            variant: str, shape: Dict[str, int]) -> None:
+    """Launch the kernel with `shape` on the current stream; raise
+    RuntimeError if the launch is refused."""
+    k, n = x.shape
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.gf_tune_launch(x.data_ptr(), consts.data_ptr(),
-                                out.data_ptr(), n, k, r,
-                                VARIANTS.index(variant), tile, stream)
+                                out.data_ptr(), n, k, consts.shape[0],
+                                VARIANTS.index(variant), shape["grid"],
+                                shape["block"], shape["block_words"], stream)
     if rc != 0:
-        raise RuntimeError(f"gf_tune_kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"gf_tune_kernel ({variant}, {shape}) launch "
+                           f"failed: cudaError {rc}")
     global launches
     with _count_lock:
         launches += 1
+
+
+def _run(x: torch.Tensor, consts: torch.Tensor, variant: str,
+         shape: Dict[str, int]) -> torch.Tensor:
+    out = torch.empty((consts.shape[0], x.shape[1]), dtype=torch.int32,
+                      device=x.device)
+    if x.shape[1]:
+        _launch(x, consts, out, variant, shape)
     return out
+
+
+def gf_tune(x: torch.Tensor, consts: torch.Tensor, variant: str,
+            tile: int) -> torch.Tensor:
+    """x (k, n) int32 contiguous and consts (r, k, 8) int32 contiguous on
+    the same device → (r, n) int32, through `variant` at `tile` (the
+    plain version on the CPU)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}")
+    if x.device.type == "cpu":
+        return gf_tune_plain(x, consts, variant)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    check_args(x, consts, variant, tile)
+    return _run(x, consts, variant, launch_shape(tile, x.shape[1]))
 
 
 # --- the sweep ------------------------------------------------------------
 
 
-def staged_group(device, seed: int = 7, nblocks: int = NBLOCKS,
-                 block: int = BLOCK):
-    """The sweep's input on `device`: (u32 codewords (ncw, K, s4) numpy,
-    xflat (K, n) int32, codewords (ncw, K, s4) int32, mask consts
-    (M, K, 8) int32, scalar consts for gf_apply, parity matrix)."""
+def staged_group(device, k: int = K, r: int = M, seed: int = 7,
+                 nblocks: int = NBLOCKS, block: int = BLOCK):
+    """The sweep's input on `device`, one group of `nblocks` blocks as
+    RS(k, r) codewords: (u32 codewords (ncw, k, s4) numpy, xflat (k, n)
+    int32, codewords (ncw, k, s4) int32, mask consts (r, k, 8) int32,
+    scalar consts for gf_apply, parity matrix)."""
     rng = np.random.default_rng(seed)
     data = rng.integers(0, 256, (nblocks, block), dtype=np.uint8)
-    u32 = np.ascontiguousarray(data.reshape(nblocks // K, K, block)).view(
-        "<u4").reshape(nblocks // K, K, -1)
-    mat = gf256.rs_parity_matrix(K, M)
+    u32 = np.ascontiguousarray(data.reshape(nblocks // k, k, block)).view(
+        "<u4").reshape(nblocks // k, k, -1)
+    mat = gf256.rs_parity_matrix(k, r)
     xflat = torch.from_numpy(fold(u32).view(np.int32)).to(device)
     cw = torch.from_numpy(u32.view(np.int32)).to(device)
     masks = torch.from_numpy(mask_consts(mat).view(np.int32)).to(device)
@@ -204,11 +263,41 @@ def bound(k: int, r: int, n: int) -> Dict[str, float]:
             "bytes": nbytes}
 
 
+def census(variant: str, k: int = K, r: int = M) -> Optional[dict]:
+    """The variant's SASS census per thread, which owns one 16-byte
+    column (WORDS words), by opcode and by pipe class, and per word the
+    ALU-pipe, LDS and IMAD instructions; None without cuobjdump."""
+    sym = f"gf_tune_kernelILi{VARIANTS.index(variant)}ELi{k}ELi{r}EE"
+    counts = sass_census(_build._lib_path("gf_tune"), sym)
+    if counts is None:
+        return None
+    cls = census_classes(counts)
+    return {"ops": counts, "classes": cls, "per_word": {
+        "alu": cls["alu"] / WORDS, "lds": counts.get("LDS", 0) / WORDS,
+        "imad": counts.get("IMAD", 0) / WORDS}}
+
+
+def issue(cls: Optional[dict], n: int, ms: float) -> dict:
+    """From a census's classes: the least time of these instructions over
+    the n / WORDS threads of a launch (``timing.ops_ms``), and the ALU and
+    all lanes they issued per SM per clock in `ms` at 1.98 GHz."""
+    if cls is None:
+        return {"issue_bound_ms": None, "alu_lanes_per_sm_clock": None,
+                "lanes_per_sm_clock": None}
+    threads = n // WORDS
+    issued = cls["total"] - cls["uniform"]
+    clocks = ms / 1e3 * SMS * SM_CLOCK_HZ
+    return {"issue_bound_ms": ops_ms(threads * cls["alu"], threads * issued),
+            "alu_lanes_per_sm_clock": threads * cls["alu"] / clocks,
+            "lanes_per_sm_clock": threads * issued / clocks}
+
+
 def sweep(device, reps: int = 50, variants=VARIANTS, tiles=TILES,
           oracle=None) -> dict:
-    """Check and time every variant x tile cell and gf_apply on one
-    staged group.  `oracle(mat, u8 codewords)` → parity bytes; default
-    gf256.gf_matmul_blocks.  Raises on any mismatch."""
+    """Check and time every variant x tile cell, launched as
+    ``launch_shape`` gives it, and gf_apply, on one staged group.
+    `oracle(mat, u8 codewords)` → parity bytes; default
+    gf256.gf_matmul_blocks.  Raises on any mismatch or refused launch."""
     u32, xflat, cw, masks, scalar, mat = staged_group(device)
     ncw, k, s4 = u32.shape
     n = xflat.shape[1]
@@ -217,25 +306,33 @@ def sweep(device, reps: int = 50, variants=VARIANTS, tiles=TILES,
     want_u32 = want.view("<u4").reshape(ncw, M, s4)
     flush = torch.empty((FLUSH_BYTES,), dtype=torch.uint8, device=device)
     data_bytes = 4 * k * n
+    b = bound(k, M, n)
+    censuses = {v: census(v) for v in variants}
+
     cells = {}
     for variant in variants:
+        cls = censuses[variant] and censuses[variant]["classes"]
         for tile in tiles:
             tag = f"{variant}/t{tile}"
-            got = gf_tune(xflat, masks, variant, tile).cpu().numpy()
-            if not np.array_equal(unfold(got.view("<u4"), ncw), want_u32):
+            fn = functools.partial(gf_tune, xflat, masks, variant, tile)
+            if not np.array_equal(unfold(fn().cpu().numpy().view("<u4"), ncw),
+                                  want_u32):
                 raise RuntimeError(f"gf_tune {tag}: wrong result")
-            ms = queued_ms(lambda: gf_tune(xflat, masks, variant, tile), reps,
-                           flush)
-            cells[tag] = {"ms": ms, "gibs": data_bytes / (ms / 1e3) / 2**30}
+            ms = queued_ms(fn, reps, flush)
+            cells[tag] = {
+                "ms": ms, "gibs": data_bytes / (ms / 1e3) / 2**30,
+                "share": b["bound_ms"] / ms, **launch_shape(tile, n),
+                "cluster": 1, **issue(cls, n, ms)}
     got = gf_apply(cw, scalar).cpu().numpy()
     if not np.array_equal(got.view("<u4"), want_u32):
         raise RuntimeError("gf_apply: wrong result")
     ms = queued_ms(lambda: gf_apply(cw, scalar), reps, flush)
     best = min(cells, key=lambda t: cells[t]["ms"])
     return {"shape": [k, n], "codewords": ncw, "reps": reps,
-            "cells": cells,
-            "gf_apply": {"ms": ms, "gibs": data_bytes / (ms / 1e3) / 2**30},
-            "best": {"tag": best, **cells[best]}, **bound(k, M, n)}
+            "cells": cells, "census": censuses,
+            "gf_apply": {"ms": ms, "gibs": data_bytes / (ms / 1e3) / 2**30,
+                         "share": b["bound_ms"] / ms},
+            "best": {"tag": best, **cells[best]}, **b}
 
 
 def nvidia_smi_line() -> Optional[str]:
@@ -260,8 +357,8 @@ def main(argv=None) -> int:
     rec = {"card": nvidia_smi_line(), "kind": torch.cuda.get_device_name(0),
            **sweep(device, reps=args.reps)}
     for tag, cell in sorted(rec["cells"].items()):
-        print(f"# {tag}: {cell['ms']:.4f} ms, {cell['gibs']:.1f} GiB/s",
-              file=sys.stderr)
+        print(f"# {tag}: {cell['ms']:.4f} ms, {cell['gibs']:.1f} GiB/s, grid "
+              f"{cell['grid']} x {cell['block']}", file=sys.stderr)
     line = json.dumps(rec)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -135,27 +135,52 @@ def test_fused_scrub_matches_cpu_codec(gpu):
 # --- slice 2: T1, pinned staging, the pool API ---------------------------
 
 
-@pytest.mark.parametrize("tile", [128, 4096])
+@pytest.mark.parametrize("tile", [128, 4096, 8192, 16384])
 def test_gf_tune_variants_match_plain(gpu, tile):
+    """Every variant at every tile the kernel takes, at both (k, r) it is
+    built for, against the plain version and the numpy oracle."""
     from garage_tpu_torch.tools import gf_tune as T
 
+    assert tile in T.KERNEL_TILES
     rng = np.random.default_rng(tile)
     for k, r in T.SHAPES:
         mat = gf256.rs_parity_matrix(k, r)
-        u32 = rng.integers(0, 2**32, (3, k, 4096), dtype=np.uint32)
+        u32 = rng.integers(0, 2**32, (4, k, 4096), dtype=np.uint32)
         x = torch.from_numpy(T.fold(u32).view(np.int32)).to(gpu)
         c = torch.from_numpy(T.mask_consts(mat).view(np.int32)).to(gpu)
         want = cuda_gf.reference_apply(mat, u32)
         for variant in T.VARIANTS:
+            plain = T.gf_tune_plain(x, c, variant)
             before = T.launches
             got = T.gf_tune(x, c, variant, tile)
             torch.cuda.synchronize()
             assert T.launches == before + 1
-            assert torch.equal(got, T.gf_tune_plain(x, c, variant))
+            assert torch.equal(got, plain), (k, r, variant)
             assert np.array_equal(
-                T.unfold(got.cpu().numpy().view("<u4"), 3), want)
+                T.unfold(got.cpu().numpy().view("<u4"), 4), want)
     with pytest.raises(ValueError):
         T.gf_tune(x, c, "acc", 96)
+
+
+def test_gf_tune_refused_launches_raise(gpu):
+    """A misaligned x and a (k, r) the kernel is not built for raise,
+    count no launch, and leave the next launch right."""
+    from garage_tpu_torch.tools import gf_tune as T
+
+    mat = gf256.rs_parity_matrix(8, 4)
+    u32 = np.random.default_rng(5).integers(0, 2**32, (4, 8, 4096),
+                                             dtype=np.uint32)
+    x = torch.from_numpy(T.fold(u32).view(np.int32)).to(gpu)
+    c = torch.from_numpy(T.mask_consts(mat).view(np.int32)).to(gpu)
+    n = x.shape[1] - 128
+    before = T.launches
+    with pytest.raises(ValueError, match="aligned"):
+        T.gf_tune(x.view(-1)[1:1 + 8 * n].view(8, n), c, "acc", 128)
+    with pytest.raises(ValueError, match=r"\(k, r\)"):
+        T.gf_tune(x, c[:1], "acc", 128)
+    assert T.launches == before
+    assert torch.equal(T.gf_tune(x, c, "acc", 4096),
+                       T.gf_tune_plain(x, c, "acc"))
 
 
 def _scrub_inputs(codec, seed=21, sizes=(3000, 1, 0, 2047, 3000, 64, 65, 4096)):
