@@ -46,12 +46,30 @@ Phases, each fatal on any mismatch or exception:
                   bytes and a warm pass that stages nothing.  Prints bytes
                   by side, stage seconds, cold and warm GiB/s, the pinned
                   H2D rate of one slot and collect's split.
-  5. tune       — T1's path: tools/gf_tune.py's sweep of the GF kernel's
+  5. store      — one block store node's paths (slice 3a): three port
+                  Systems on loopback (replication 3, sqlite, the
+                  reference defaults), each with a BlockManager whose
+                  codec its Config builds on the card: hybrid, cuda,
+                  and hybrid with a ParityStore.  1,024 blocks of 1 MiB
+                  (the last of every 256 700,001 B, 1 in 16 stored
+                  compressed) hashed by node 0's feeder and written with
+                  rpc_put_block; 256 GETs on node 1 verified on the card,
+                  8 more served by peers; 3 planted corruptions each on
+                  nodes 0 and 1 found by one ScrubWorker pass
+                  (tranquility 0), quarantined, resynced from peers
+                  bit-equal, and a clean second pass; node 2's sidecars
+                  against the numpy oracle and one block rebuilt from its
+                  sidecar through the GF kernel's decode body.  Prints
+                  per node and pass the wall time, GiB/s, blocks per
+                  scrub dispatch, bytes by side and launches, and a
+                  reckoning of three codecs' memory beside the measured
+                  peak.
+  6. tune       — T1's path: tools/gf_tune.py's sweep of the GF kernel's
                   loop orders x tiles, each cell checked and timed, with
                   each variant's SASS census and the issue bound it
                   implies, beside the production GF kernel on the same
                   codewords.
-  6. times      — each kernel's time (CUDA events, after a warm-up,
+  7. times      — each kernel's time (CUDA events, after a warm-up,
                   launches queued behind a sleep kernel: tools/timing.py)
                   beside its bound (the larger of bytes over 3.35 TB/s,
                   the fewest 32-bit integer instructions over the SMs'
@@ -65,7 +83,8 @@ Phases, each fatal on any mismatch or exception:
                   with the SM clock; the pageable H2D copy of one batch.
 
 Launch counts are zeroed just before each path (main's scrub / put /
-decode / 1024-lane scrub, production's cold / warm / put / decode, tune)
+decode / 1024-lane scrub, production's cold / warm / put / decode,
+store's put / get / each scrub pass, tune)
 and read just after it; each path must have launched every kernel it
 runs, and the GF kernel only the body each path needs (GF_BODIES).
 The sizes are the reference configuration's defaults: 1 MiB
@@ -82,8 +101,11 @@ import argparse
 import asyncio
 import hashlib
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -710,11 +732,14 @@ def counts_now(mods) -> dict:
 # the GF kernel body each path must run, and nothing else: the RS(8,4)
 # instantiation for scrub, PUT hashing + encode; the two-row decode (rows
 # [2, 5] of a codeword missing shards 2 and 5) for the degraded reads; the
+# one-row decode beside the scrub's for the store's sidecar repair; the
 # runtime-(k, r) body nowhere
 GF_BODIES = {"scrub": {"k8r4"}, "put": {"k8r4"}, "decode": {"k8r2"},
              "scrub_1024": {"k8r4"}, "prod_scrub_cold": {"k8r4"},
              "prod_scrub_warm": {"k8r4"}, "prod_put": {"k8r4"},
-             "prod_decode": {"k8r2"}}
+             "prod_decode": {"k8r2"}, "store_scrub_n1": {"k8r4"},
+             "store_rescrub_n1": {"k8r4"},
+             "store_repair_n2": {"k8r4", "k8r1"}}
 
 
 def check_gf_bodies(path: str, by_body: dict) -> None:
@@ -963,6 +988,472 @@ async def _gather_scrubs(feeder, bs, hs):
                                   for b, h in zip(bs, hs)])
 
 
+# --- the block store node: Config → System → BlockManager → ScrubWorker ---
+
+# node i's [codec] section; everything else is the reference default
+# (1 MiB blocks, RS(8,4), compression_level 1, the sqlite engine)
+STORE_NODES = ({"backend": "hybrid"}, {"backend": "cuda"},
+               {"backend": "hybrid", "store_parity": True})
+# what each store path must launch where its device route is fixed:
+# node 1's cuda codec, and node 2's sidecar repair, whose background
+# decode rides a probed link (GF_BODIES holds their GF bodies); node 0's
+# hybrid gate decides its own route and is reported as measured
+STORE_NEEDS = {"store_get": ("blake2s",), "store_scrub_n1": CODEC_KERNELS,
+               "store_rescrub_n1": CODEC_KERNELS,
+               "store_repair_n2": CODEC_KERNELS}
+
+
+def store_memory_reckoning(blk: int) -> dict:
+    """Upper bounds of what one node's codec holds, at the reference
+    defaults (ops/codec.py CodecParams) and the staging clamp of
+    ops/hybrid_codec.py: a hybrid node stages at most (hybrid_window + 1)
+    device submissions of device_batch_blocks blocks, in pinned slots of
+    at most max_device_staging_mib / transport_staging_slots each, and
+    holds their parity (m/k of the data) and pool_mib of pool pages on
+    the card; a cuda node holds one feeder batch (feeder_max_batch_blocks
+    blocks) and its parity on the card and pins nothing."""
+    from garage_tpu_torch.ops.codec import CodecParams
+    from garage_tpu_torch.utils.config import CodecConfig
+
+    p, c = CodecParams(block_size=blk), CodecConfig()
+    window = max(1, p.hybrid_window)
+    sub = min(p.device_batch_blocks,
+              max(p.hybrid_group_blocks,
+                  (p.max_device_staging_mib << 20) // ((window + 1) * blk)))
+    slot = min(sub * blk,
+               (p.max_device_staging_mib << 20) // p.transport_staging_slots)
+    grow = 1 + p.rs_parity / p.rs_data
+    hybrid = {"pinned_host": p.transport_staging_slots * slot,
+              "device_staging": int((window + 1) * sub * blk * grow),
+              "device_pool": p.pool_mib << 20}
+    cuda = {"pinned_host": 0,
+            "device_staging": int(c.feeder_max_batch_blocks * blk * grow),
+            "device_pool": 0}
+    nodes = [cuda if n["backend"] == "cuda" else hybrid for n in STORE_NODES]
+    return {"per_node": nodes,
+            "pinned_host": sum(n["pinned_host"] for n in nodes),
+            "device": sum(n["device_staging"] + n["device_pool"]
+                          for n in nodes)}
+
+
+async def store_nodes(root: Path, blk: int) -> list:
+    """Three port Systems meshed on loopback with an applied layout
+    (replication 3), each with a sqlite db, a BlockManager whose codec
+    its Config builds (config.codec.make(), on the card), and a resync
+    manager, wired as the daemon wires them; node 2 gets a ParityStore."""
+    from garage_tpu_torch.block import BlockManager, BlockResyncManager
+    from garage_tpu_torch.block.parity import ParityStore
+    from garage_tpu_torch.block.resync import ResyncPersistedConfig
+    from garage_tpu_torch.db import open_db
+    from garage_tpu_torch.rpc.layout import ClusterLayout, NodeRole
+    from garage_tpu_torch.rpc.system import System
+    from garage_tpu_torch.table import TableShardedReplication
+    from garage_tpu_torch.utils.config import config_from_dict
+    from garage_tpu_torch.utils.persister import Persister
+
+    systems = []
+    for i, codec in enumerate(STORE_NODES):
+        s = System(config_from_dict({
+            "metadata_dir": str(root / f"n{i}" / "meta"),
+            "data_dir": str(root / f"n{i}" / "data"),
+            "replication_mode": "3", "block_size": blk,
+            "rpc_bind_addr": "127.0.0.1:0", "rpc_secret": "chip-smoke",
+            "bootstrap_peers": [], "codec": dict(codec)}))
+        await s.netapp.listen("127.0.0.1:0")
+        systems.append(s)
+    ports = [s.netapp._server.sockets[0].getsockname()[1] for s in systems]
+    for i, a in enumerate(systems):
+        for j in range(i + 1, len(systems)):
+            await a.netapp.connect(f"127.0.0.1:{ports[j]}",
+                                   expected_id=systems[j].id)
+        a.config.rpc_public_addr = f"127.0.0.1:{ports[i]}"
+    lay = systems[0].layout
+    for s in systems:
+        lay.stage_role(bytes(s.id), NodeRole("dc1", 1000))
+    lay.apply_staged_changes()
+    enc = lay.encode()
+    nodes = []
+    for s in systems:
+        s.layout = ClusterLayout.decode(enc)
+        s._rebuild_ring()
+        check(s.ring.ready, "store: ring not ready after the layout")
+        cfg, mode = s.config, s.replication_mode
+        db = open_db(cfg.db_engine,
+                     path=os.path.join(cfg.metadata_dir, "db.sqlite"))
+        m = BlockManager(cfg, db, s, TableShardedReplication(
+            s, mode.replication_factor, 1, mode.write_quorum))
+        m.resync = BlockResyncManager(m, db, persister=Persister(
+            cfg.metadata_dir, "resync_cfg", ResyncPersistedConfig))
+        m.startup_janitor()
+        if cfg.codec.store_parity:
+            m.parity_store = ParityStore(m, db, m.codec)
+        nodes.append(m)
+    return nodes
+
+
+def store_blocks(n: int, blk: int, rng) -> tuple:
+    """(blocks, indices of the compressible ones): n blocks of blk bytes,
+    the last of every 256 700,001 B (at 1 MiB blocks), one in 16 a
+    512-byte pattern repeated, which compression_level 1 stores
+    compressed; the rest random."""
+    period = min(256, n)
+    short = 700001 * blk // MIB
+    blocks, compressible = [], []
+    for i in range(n):
+        size = short if i % period == period - 1 else blk
+        if i % 16 == 7:
+            blocks.append((rng.bytes(512) * (size // 512 + 1))[:size])
+            compressible.append(i)
+        else:
+            blocks.append(rng.bytes(size))
+    return blocks, compressible
+
+
+def flip_byte(path: str, off: int) -> None:
+    with open(path, "r+b") as f:
+        f.seek(off)
+        b = f.read(1)
+        f.seek(off)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def sidecar_parity_checked(store, blocks_by_hash, oracle, mat) -> int:
+    """Every sidecar manifest under `store`'s parity dirs: its parity
+    rows against the numpy GF(2^8) oracle over its member blocks, zero
+    padded to the manifest's width.  Returns the number of codewords."""
+    import msgpack
+
+    n = 0
+    for base in store.all_dirs:
+        for dirpath, _dirs, files in os.walk(base):
+            for name in files:
+                with open(os.path.join(dirpath, name), "rb") as f:
+                    man = msgpack.unpackb(f.read(), raw=False)
+                k, maxlen = man["k"], man["maxlen"]
+                rows = np.zeros((k, maxlen), np.uint8)
+                for i, h in enumerate(man["hashes"]):
+                    b = blocks_by_hash[bytes(h)]
+                    rows[i, :len(b)] = np.frombuffer(b, np.uint8)
+                want = oracle.apply(mat, rows[None])[0]
+                got = np.stack([np.frombuffer(p, np.uint8)
+                                for p in man["parity"]])
+                check(np.array_equal(got, want),
+                      f"sidecar {name}: parity != numpy GF(2^8)")
+                n += 1
+    return n
+
+
+def phase_store(ctx) -> dict:
+    """One block store node's paths on the card: three nodes' PUT, GET
+    verify, scrub, quarantine, resync and sidecar repair, every byte
+    checked against hashlib and the numpy oracle."""
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_store_"))
+    try:
+        return asyncio.run(_store(ctx, root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+async def _store(ctx, root: Path) -> dict:
+    torch = ctx["torch"]
+    from garage_tpu_torch.block.repair import ScrubWorker, ScrubWorkerState
+    from garage_tpu_torch.block.resync import ResyncWorker
+    from garage_tpu_torch.ops import cuda_blake2s, cuda_codec, cuda_gf, gf256
+    from garage_tpu_torch.tools import gf_tune
+    from garage_tpu_torch.utils.data import Hash
+    from garage_tpu_torch.utils.persister import Persister
+    from garage_tpu_torch.utils.zstd_compat import HAVE_ZSTD
+
+    mods = (cuda_blake2s, cuda_gf, cuda_codec, gf_tune)
+    blk, n = ctx["block"], ctx["store_blocks"]
+    k, m = 8, 4
+    oracle, mat = ctx["oracle"], gf256.rs_parity_matrix(k, m)
+    reck = store_memory_reckoning(blk)
+    log(f"[store] memory reckoning at the reference defaults, upper bounds "
+        f"per node (hybrid, cuda, hybrid): "
+        f"{json.dumps(reck['per_node'])}; three nodes: pinned host "
+        f"{reck['pinned_host'] / 2**30:.2f} GiB, device "
+        f"{reck['device'] / 2**30:.2f} GiB of the card's "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t_build = time.perf_counter()
+    nodes = await store_nodes(root, blk)
+    build_s = time.perf_counter() - t_build
+    for i, node in enumerate(nodes):
+        codec = node.codec
+        dev = getattr(codec, "device", None)
+        check(str(dev).startswith("cuda"), f"store node {i}: codec "
+              f"{type(codec).__name__} is on {dev}, not the card")
+    log(f"[store] on {ctx['card']}: 3 nodes on loopback (replication 3, "
+        f"sqlite, {blk} B blocks, RS({k},{m}), compression_level 1; zstd wheel "
+        f"HAVE_ZSTD={HAVE_ZSTD}): codecs "
+        f"{[type(x.codec).__name__ for x in nodes]} built from Config in "
+        f"{build_s:.2f} s")
+
+    by_path, out = {}, {"build_s": build_s, "memory_reckoning": reck}
+
+    def end_path(path):
+        torch.cuda.synchronize()
+        by_path[path] = counts_now(mods)
+        for name in STORE_NEEDS.get(path, ()):
+            check(by_path[path][name] > 0,
+                  f"kernel {name} was not launched on the {path} path")
+        if path in GF_BODIES:
+            check_gf_bodies(path, by_path[path]["gf_apply_by"])
+
+    async def bounded(coros, width=16):
+        sem = asyncio.Semaphore(width)
+
+        async def one(c):
+            async with sem:
+                return await c
+        return await asyncio.gather(*[one(c) for c in coros])
+
+    # 1. PUT: node 0's feeder hashes (the S3 PUT path's call), node 0
+    # writes to the block's three replicas
+    rng = np.random.default_rng(SEED + 5)
+    blocks, compressible = store_blocks(n, blk, rng)
+    total = sum(len(b) for b in blocks)
+    reset_counts(torch, mods)
+    t0 = time.perf_counter()
+    digs = await asyncio.gather(*[nodes[0].feeder.hash_async([b], peers=n)
+                                  for b in blocks])
+    hash_s = time.perf_counter() - t0
+    hashes = []
+    for b, d in zip(blocks, digs):
+        check(bytes(d[0]) == hashlib_digest(b), "store PUT digest != hashlib")
+        hashes.append(Hash(bytes(d[0])))
+    by_hash = {bytes(h): b for h, b in zip(hashes, blocks)}
+    t1 = time.perf_counter()
+    await bounded([nodes[0].rpc_put_block(h, b)
+                   for h, b in zip(hashes, blocks)])
+    put_s = time.perf_counter() - t1
+    end_path("store_put")
+    deadline = time.monotonic() + 120
+    while not all(x.is_block_present(h) for x in nodes for h in hashes):
+        check(time.monotonic() < deadline,
+              "store: not every block reached all three nodes in 120 s")
+        await asyncio.sleep(0.05)
+    stored_compressed = {i for i, h in enumerate(hashes)
+                         if nodes[0].find_block(h)[1]}
+    check(stored_compressed == set(compressible),
+          f"store: {len(stored_compressed)} blocks stored compressed, "
+          f"expected the {len(compressible)} compressible ones")
+    # the references an object table would hold
+    for x in nodes:
+        x.db.transaction(lambda tx, x=x: [x.rc.block_incref(tx, h)
+                                          for h in hashes])
+    log(f"[store] PUT {n} blocks ({total / 2**30:.3f} GiB, "
+        f"{len(compressible)} stored compressed): node 0 hash_async "
+        f"{hash_s:.3f} s (digests == hashlib), rpc_put_block x {n} "
+        f"{put_s:.3f} s ({total / put_s / 2**30:.3f} GiB/s), on all 3 "
+        f"nodes; bytes by side node 0 {json.dumps(nodes[0].codec.obs.bytes_total)}")
+    out.update(put_hash_s=hash_s, put_s=put_s, put_bytes=total)
+
+    # 2. GET on node 1: local copies verified through its feeder on the
+    # card; then 8 local copies deleted, read from peers
+    g = np.random.default_rng(SEED + 6)
+    order = [int(i) for i in g.permutation(n)]
+    n_get = min(256, n // 4)
+    get_idx, gone_idx = order[:n_get], order[n_get:n_get + 8]
+    reset_counts(torch, mods)
+    t2 = time.perf_counter()
+    got = await bounded([nodes[1].rpc_get_block(hashes[i]) for i in get_idx])
+    get_s = time.perf_counter() - t2
+    for i, b in zip(get_idx, got):
+        check(b == blocks[i], f"store GET block {i} differs")
+    for i in gone_idx:
+        os.remove(nodes[1].find_block(hashes[i])[0])
+    t3 = time.perf_counter()
+    got = await bounded([nodes[1].rpc_get_block(hashes[i]) for i in gone_idx])
+    peer_s = time.perf_counter() - t3
+    end_path("store_get")
+    for i, b in zip(gone_idx, got):
+        check(b == blocks[i] and not nodes[1].is_block_present(hashes[i]),
+              f"store GET of block {i} from a peer differs")
+    log(f"[store] GET on node 1: {n_get} local blocks {get_s:.3f} s, "
+        f"{len(gone_idx)} with the local copy deleted, from peers, "
+        f"{peer_s:.3f} s: bytes equal")
+    out.update(get_s=get_s, get_blocks=n_get, peer_get_s=peer_s)
+
+    # 3. scrub with 3 planted corruptions on nodes 0 and 1
+    gone = set(gone_idx)
+    plain = [i for i in range(n) if i not in compressible and i not in gone]
+    victims = [int(i) for i in g.choice(plain, 7, replace=False)]
+    planted = {0: victims[:3], 1: victims[3:6], 2: victims[6:]}
+    workers = {}
+
+    async def scrub_pass(ni, path):
+        node = nodes[ni]
+        w = workers.get(ni)
+        if w is None:
+            w = workers[ni] = ScrubWorker(node, persister=Persister(
+                node.config.metadata_dir, "scrub_info", ScrubWorkerState))
+            w.set_tranquility(0)
+        obs, fd = node.codec.obs, node.feeder
+        tr = getattr(node.codec, "transport", None)
+        side0, fs0 = dict(obs.bytes_total), fd.stats()
+        st0 = {k: v["seconds"] for k, v in obs.stage_stats().items()}
+        tr0 = tr.stats() if tr is not None else None
+        nbytes = sum(len(blocks[i]) for i, h in enumerate(hashes)
+                     if node.is_block_present(h))
+        reset_counts(torch, mods)
+        t = time.perf_counter()
+        w.send_command("start")
+        while (await w.work()).name in ("BUSY", "THROTTLED"):
+            pass
+        wall = time.perf_counter() - t
+        end_path(path)
+        fs = fd.stats()
+        disp = fs["dispatches"] - fs0["dispatches"]
+        res = {"node": ni, "wall_s": wall, "bytes": nbytes,
+               "gibs": nbytes / wall / 2**30,
+               "corruptions": w.state.corruptions,
+               "feeder_dispatches": disp,
+               "blocks_per_dispatch": (fs["dispatched_blocks"]
+                                       - fs0["dispatched_blocks"]) / max(1, disp),
+               "side_bytes": {s: obs.bytes_total.get(s, 0) - side0.get(s, 0)
+                              for s in ("cpu", "tpu")},
+               "stages": stage_delta(st0, {k: v["seconds"] for k, v
+                                           in obs.stage_stats().items()}),
+               "launches": by_path[path]}
+        if tr is not None:
+            st = tr.stats()
+            res.update(device_batches=st["dispatches"] - tr0["dispatches"],
+                       copies_per_block=st["copies_per_block"],
+                       staged_bytes=st["staged_bytes"] - tr0["staged_bytes"])
+        log(f"[store] {path}: node {ni} ({STORE_NODES[ni]['backend']}) "
+            f"{nbytes / 2**20:.0f} MiB in {wall:.3f} s = {res['gibs']:.4f} "
+            f"GiB/s, {res['corruptions']} corruptions, {disp} feeder "
+            f"dispatches, {res['blocks_per_dispatch']:.2f} blocks per "
+            f"dispatch; bytes by side {json.dumps(res['side_bytes'])}"
+            + (f"; {res['device_batches']} device batches, staged "
+               f"{res['staged_bytes']} B, copies_per_block "
+               f"{res['copies_per_block']}" if tr is not None else "")
+            + f"; launches {json.dumps(res['launches'])}")
+        log(f"[store] {path} codec stages (s): {json.dumps(res['stages'])}")
+        return res
+
+    log("[store] scrub tranquility 0: the operator's `repair scrub "
+        "set-tranquility 0`; the default 4 (block/repair.py) sleeps 4x "
+        "the work time between batches")
+    bad_paths = {}
+    for ni in (0, 1):
+        for i in planted[ni]:
+            path = bad_paths[ni, i] = nodes[ni].find_block(hashes[i])[0]
+            flip_byte(path, int(g.integers(0, len(blocks[i]))))
+    # node 1's reads of its 8 deleted copies queued their refetch
+    # (source "serve_miss"); the scrub adds the quarantined copies
+    refetch = {0: list(planted[0]), 1: planted[1] + gone_idx}
+    passes = []
+    for ni in (0, 1):
+        res = await scrub_pass(ni, f"store_scrub_n{ni}")
+        passes.append(res)
+        node = nodes[ni]
+        check(res["corruptions"] == len(planted[ni]),
+              f"store node {ni}: scrub found {res['corruptions']} "
+              f"corruptions, {len(planted[ni])} planted")
+        for i in planted[ni]:
+            check(not node.is_block_present(hashes[i])
+                  and os.path.exists(bad_paths[ni, i] + ".corrupted"),
+                  f"store node {ni}: corrupt block {i} not quarantined")
+        check(node.resync.enqueue_counts.get("scrub_corrupt") ==
+              len(planted[ni]), f"store node {ni}: scrub queued "
+              f"{node.resync.enqueue_counts.get('scrub_corrupt')} resyncs")
+        queued = sorted(bytes(key[8:]) for key, _v in
+                        node.resync.queue.items(None, None))
+        check(queued == sorted(bytes(hashes[i]) for i in refetch[ni]),
+              f"store node {ni}: resync queue holds {len(queued)} "
+              f"blocks, expected the {len(refetch[ni])} to refetch")
+        log(f"[store] node {ni}: {len(planted[ni])} corrupt copies "
+            f"quarantined (.corrupted), resync queue {len(queued)} "
+            f"({json.dumps(node.resync.enqueue_counts)})")
+    check(passes[1]["side_bytes"]["cpu"] == 0,
+          f"store node 1 (cuda): {passes[1]['side_bytes']['cpu']} scrub "
+          "bytes on the CPU")
+
+    # 4. resync: each quarantined copy comes back from a peer; a second
+    # pass finds nothing
+    for ni in (0, 1):
+        node = nodes[ni]
+        rw = ResyncWorker(node.resync)
+        t = time.perf_counter()
+        deadline = time.monotonic() + 120
+        while node.resync.queue_len():
+            check(time.monotonic() < deadline,
+                  f"store node {ni}: resync did not drain in 120 s")
+            if (await rw.work()).name == "IDLE":
+                await rw.wait_for_work()
+        resync_s = time.perf_counter() - t
+        for i in refetch[ni]:
+            blk_back = await node.read_block(hashes[i])
+            check(blk_back.decompressed() == blocks[i],
+                  f"store node {ni}: resynced block {i} differs")
+        log(f"[store] resync node {ni}: {len(refetch[ni])} blocks back "
+            f"from peers, bit-equal, in {resync_s:.3f} s")
+        out[f"resync_n{ni}_s"] = resync_s
+    for ni in (0, 1):
+        res = await scrub_pass(ni, f"store_rescrub_n{ni}")
+        passes.append(res)
+        check(res["corruptions"] == 0,
+              f"store node {ni}: second pass found {res['corruptions']}")
+
+    # 5. sidecar repair on node 2
+    node = nodes[2]
+    res = await scrub_pass(2, "store_scrub_n2")
+    passes.append(res)
+    check(res["corruptions"] == 0, "store node 2: first pass found "
+          f"{res['corruptions']} corruptions")
+    t = time.perf_counter()
+    ncw = sidecar_parity_checked(node.parity_store, by_hash, oracle, mat)
+    oracle_s = time.perf_counter() - t
+    check(ncw == n // k, f"store node 2: {ncw} sidecars, expected {n // k}")
+    log(f"[store] node 2: {ncw} sidecar codewords, parity == numpy GF(2^8) "
+        f"({oracle_s:.1f} s of numpy)")
+    vi = planted[2][0]
+    flip_byte(node.find_block(hashes[vi])[0],
+              int(g.integers(0, len(blocks[vi]))))
+    node.blocks_reconstructed = 0
+    res = await scrub_pass(2, "store_repair_n2")
+    passes.append(res)
+    check(res["corruptions"] == 1 and node.blocks_reconstructed == 1,
+          f"store node 2: {res['corruptions']} corruptions, "
+          f"{node.blocks_reconstructed} reconstructed (1 and 1 expected)")
+    check(node.resync.queue_len() == 0,
+          "store node 2: the sidecar repair queued a network resync")
+    check((await node.read_block(hashes[vi])).decompressed() == blocks[vi],
+          "store node 2: the rebuilt block differs")
+    log(f"[store] node 2: corrupt block rebuilt from its sidecar on the "
+        f"card (decode body k8r1 launched "
+        f"{res['launches']['gf_apply_by'].get('k8r1', 0)} times), "
+        f"bytes equal, resync queue 0; pass {res['wall_s']:.3f} s")
+
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - mem0
+    pinned = sum(t.numel() for x in nodes
+                 for t in getattr(getattr(x.codec, "transport", None),
+                                  "_slot_tensors", []) if t is not None)
+    log(f"[store] measured: peak device allocation {peak / 2**30:.3f} GiB "
+        f"over the phase, pinned staging slots {pinned / 2**20:.0f} MiB")
+    for x in nodes:
+        x.feeder.shutdown()
+        close = getattr(x.codec, "close", None)
+        if close is not None:
+            close()
+        await x.system.netapp.shutdown()
+        x.db.close()
+    launches = {name: sum(c[name] for c in by_path.values())
+                for name in KERNELS}
+    for path, counts in by_path.items():
+        log(f"[store] launches on the {path} path: {json.dumps(counts)}")
+    out.update(passes=passes, launches=launches, launches_by_path=by_path,
+               peak_device_bytes=peak, pinned_slot_bytes=pinned,
+               sidecar_codewords=ncw, have_zstd=HAVE_ZSTD)
+    return out
+
+
 def phase_tune(ctx) -> dict:
     """T1's path: the GF variant sweep of tools/gf_tune.py on one staged
     group, each cell checked against the numpy oracle and timed."""
@@ -1106,7 +1597,8 @@ def gf_times(ctx, reps: int) -> dict:
     return res
 
 
-def phase_times(ctx, main: dict, prod: dict, tune: dict) -> list:
+def phase_times(ctx, main: dict, prod: dict, store: dict,
+                tune: dict) -> list:
     torch = ctx["torch"]
     from garage_tpu_torch.ops.cuda_blake2s import blake2s_batch, g_chain_cycles
     from garage_tpu_torch.tools.timing import queued_ms
@@ -1169,11 +1661,13 @@ def phase_times(ctx, main: dict, prod: dict, tune: dict) -> list:
                      "narrow_ms": gf["narrow"]["ms"],
                      "narrow_runtime_ms": gf["narrow"]["runtime_ms"],
                      "full_decode_ms": gf["full_decode"]["ms"],
-                     "launches_by_body": gf_bodies_launched(main, prod)},
+                     "launches_by_body": gf_bodies_launched(main, prod,
+                                                            store)},
         "fused_scrub": {},
     }
     rows, bounds = [], {}
-    by_path = {**main["launches_by_path"], **prod["launches_by_path"]}
+    by_path = {**main["launches_by_path"], **prod["launches_by_path"],
+               **store["launches_by_path"]}
     for name in CODEC_KERNELS:
         bms, by = bound_ms(*work[name], dep[name])
         roof, roof_by = bound_ms(*work[name])
@@ -1182,7 +1676,8 @@ def phase_times(ctx, main: dict, prod: dict, tune: dict) -> list:
         rows.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],
-            "launches": main["launches"][name] + prod["launches"][name],
+            "launches": (main["launches"][name] + prod["launches"][name]
+                         + store["launches"][name]),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": ctx["max_err"][name], "ms": ms[name],
             "plain_ms": ctx["plain_ms"][name], "bound_ms": bms,
@@ -1241,10 +1736,12 @@ def phase_times(ctx, main: dict, prod: dict, tune: dict) -> list:
     return rows
 
 
-def gf_bodies_launched(main: dict, prod: dict) -> dict:
-    """GF kernel launches by body over the main and production paths."""
+def gf_bodies_launched(main: dict, prod: dict, store: dict) -> dict:
+    """GF kernel launches by body over the main, production and store
+    paths."""
     total = {}
-    for paths in (main["launches_by_path"], prod["launches_by_path"]):
+    for paths in (main["launches_by_path"], prod["launches_by_path"],
+                  store["launches_by_path"]):
         for counts in paths.values():
             for body, n in counts.get("gf_apply_by", {}).items():
                 total[body] = total.get(body, 0) + n
@@ -1288,8 +1785,9 @@ def main() -> int:
            "scrub_lanes": 64 if args.quick else 256,
            "batches": 2 if args.quick else 4,
            "reps": 3 if args.quick else 5, "scrub_runs": 3,
+           "store_blocks": 128 if args.quick else 1024,
            "tune_reps": 10 if args.quick else 100}
-    card = nvidia_smi_line()
+    card = ctx["card"] = nvidia_smi_line()
     log(f"[card] {torch.cuda.get_device_name(0)} ({card}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
@@ -1302,15 +1800,19 @@ def main() -> int:
     for name in CODEC_KERNELS:
         check(prod_out["launches"][name] > 0,
               f"kernel {name} was not launched on the production path")
+    store_out = phase_store(ctx)
+    for name in CODEC_KERNELS:
+        check(store_out["launches"][name] > 0,
+              f"kernel {name} was not launched on the store path")
     tune_out = phase_tune(ctx)
-    rows = phase_times(ctx, main_out, prod_out, tune_out)
+    rows = phase_times(ctx, main_out, prod_out, store_out, tune_out)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({
             "card": card, "kernels": rows, "build_s": ctx["build_s"],
             "main": {k: v for k, v in main_out.items()},
-            "production": prod_out, "tune": tune_out,
+            "production": prod_out, "store": store_out, "tune": tune_out,
             "summary": ctx["summary"], "quick": args.quick}, indent=1,
             default=float))
     print(json.dumps({"kernels": rows}))

@@ -302,3 +302,55 @@ def test_hybrid_on_the_card_cold_then_warm(gpu):
     finally:
         feeder.shutdown()
         hy.close()
+
+
+def test_store_node_scrub_on_the_card(gpu, tmp_path):
+    """One block store node whose Config says backend = "cuda": its
+    BlockManager builds the codec on the card, and a ScrubWorker pass
+    finds a planted corruption with no scrub byte on the CPU."""
+    import asyncio
+    import os
+
+    from garage_tpu_torch.block import BlockManager, ScrubWorker
+    from garage_tpu_torch.block.block import DataBlock
+    from garage_tpu_torch.db import open_db
+    from garage_tpu_torch.rpc.replication_mode import parse_replication_mode
+    from garage_tpu_torch.rpc.system import System
+    from garage_tpu_torch.table import TableShardedReplication
+    from garage_tpu_torch.utils.config import config_from_dict
+
+    async def run():
+        cfg = config_from_dict({
+            "metadata_dir": str(tmp_path / "meta"),
+            "data_dir": str(tmp_path / "data"), "replication_mode": "1",
+            "rpc_secret": "cuda-test", "codec": {"backend": "cuda"}})
+        s = System(cfg)
+        mode = parse_replication_mode("1")
+        m = BlockManager(cfg, open_db("memory"), s, TableShardedReplication(
+            s, mode.replication_factor, 1, mode.write_quorum))
+        assert m.codec.device.type == "cuda"
+        rng = np.random.default_rng(15)
+        blocks = [rng.bytes(int(n)) for n in rng.integers(1, 300_000, 24)]
+        hashes = [Hash(_digest(b)) for b in blocks]
+        for h, b in zip(hashes, blocks):
+            await m.write_block(h, DataBlock.plain(b))
+        path = m.find_block(hashes[7])[0]
+        with open(path, "r+b") as f:
+            f.seek(len(blocks[7]) // 2)
+            f.write(bytes([blocks[7][len(blocks[7]) // 2] ^ 1]))
+        before = dict(m.codec.obs.bytes_total)
+        w = ScrubWorker(m)
+        w.set_tranquility(0)
+        w.send_command("start")
+        while (await w.work()).name in ("BUSY", "THROTTLED"):
+            pass
+        after = m.codec.obs.bytes_total
+        m.feeder.shutdown()
+        await s.netapp.shutdown()
+        assert w.state.corruptions == 1
+        assert not m.is_block_present(hashes[7])
+        assert os.path.exists(path + ".corrupted")
+        assert after["cpu"] == before.get("cpu", 0)
+        assert after["tpu"] - before.get("tpu", 0) == sum(map(len, blocks))
+
+    asyncio.run(run())
