@@ -50,10 +50,10 @@ Phases, each fatal on any mismatch or exception:
                   Systems on loopback (replication 3, sqlite, the
                   reference defaults), each with a BlockManager whose
                   codec its Config builds on the card: hybrid, cuda,
-                  and hybrid with a ParityStore.  1,024 blocks of 1 MiB
+                  and hybrid with a ParityStore.  512 blocks of 1 MiB
                   (the last of every 256 700,001 B, 1 in 16 stored
                   compressed) hashed by node 0's feeder and written with
-                  rpc_put_block; 256 GETs on node 1 verified on the card,
+                  rpc_put_block; 128 GETs on node 1 verified on the card,
                   8 more served by peers; 3 planted corruptions each on
                   nodes 0 and 1 found by one ScrubWorker pass
                   (tranquility 0), quarantined, resynced from peers
@@ -64,12 +64,28 @@ Phases, each fatal on any mismatch or exception:
                   scrub dispatch, bytes by side and launches, and a
                   reckoning of three codecs' memory beside the measured
                   peak.
-  6. tune       — T1's path: tools/gf_tune.py's sweep of the GF kernel's
+  6. garage     — the metadata plane and the node object (slice 3b): six
+                  port Garage nodes built from Config on loopback (meta
+                  replication 3, data "none", sqlite, RS(8,4) at 1 MiB
+                  blocks with store_parity, parity_on_write and
+                  parity_distribute, repair_ppr off; node 1 hybrid, the
+                  rest cuda): 512 blocks in objects of 1-64 MiB written
+                  through node 0 (feeder hash, rpc_put_block, Version and
+                  Object rows), every block's parity-index row and every
+                  codeword's parity against the numpy oracle; 8 degraded
+                  GETs of blocks whose sole copy was deleted (resync
+                  stubbed) decoded on node 0's card; two nodes killed and
+                  dropped from the layout, every block predicted
+                  recoverable healed bit-exact and decoded exactly once;
+                  a scrub pass of node 0's own ScrubWorker.  Each node's
+                  GF launches are attributed through its codec and must
+                  add up to the kernel's counter.
+  7. tune       — T1's path: tools/gf_tune.py's sweep of the GF kernel's
                   loop orders x tiles, each cell checked and timed, with
                   each variant's SASS census and the issue bound it
                   implies, beside the production GF kernel on the same
                   codewords.
-  7. times      — each kernel's time (CUDA events, after a warm-up,
+  8. times      — each kernel's time (CUDA events, after a warm-up,
                   launches queued behind a sleep kernel: tools/timing.py)
                   beside its bound (the larger of bytes over 3.35 TB/s,
                   the fewest 32-bit integer instructions over the SMs'
@@ -84,7 +100,8 @@ Phases, each fatal on any mismatch or exception:
 
 Launch counts are zeroed just before each path (main's scrub / put /
 decode / 1024-lane scrub, production's cold / warm / put / decode,
-store's put / get / each scrub pass, tune)
+store's put / get / each scrub pass, garage's write / degraded GET /
+heal / scrub, tune)
 and read just after it; each path must have launched every kernel it
 runs, and the GF kernel only the body each path needs (GF_BODIES).
 The sizes are the reference configuration's defaults: 1 MiB
@@ -106,6 +123,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1003,7 +1021,7 @@ STORE_NEEDS = {"store_get": ("blake2s",), "store_scrub_n1": CODEC_KERNELS,
                "store_repair_n2": CODEC_KERNELS}
 
 
-def store_memory_reckoning(blk: int) -> dict:
+def store_memory_reckoning(blk: int, backends=None) -> dict:
     """Upper bounds of what one node's codec holds, at the reference
     defaults (ops/codec.py CodecParams) and the staging clamp of
     ops/hybrid_codec.py: a hybrid node stages at most (hybrid_window + 1)
@@ -1011,7 +1029,8 @@ def store_memory_reckoning(blk: int) -> dict:
     at most max_device_staging_mib / transport_staging_slots each, and
     holds their parity (m/k of the data) and pool_mib of pool pages on
     the card; a cuda node holds one feeder batch (feeder_max_batch_blocks
-    blocks) and its parity on the card and pins nothing."""
+    blocks) and its parity on the card and pins nothing.  `backends`
+    lists the nodes' backends (default: the store phase's three)."""
     from garage_tpu_torch.ops.codec import CodecParams
     from garage_tpu_torch.utils.config import CodecConfig
 
@@ -1029,7 +1048,9 @@ def store_memory_reckoning(blk: int) -> dict:
     cuda = {"pinned_host": 0,
             "device_staging": int(c.feeder_max_batch_blocks * blk * grow),
             "device_pool": 0}
-    nodes = [cuda if n["backend"] == "cuda" else hybrid for n in STORE_NODES]
+    if backends is None:
+        backends = [n["backend"] for n in STORE_NODES]
+    nodes = [cuda if b == "cuda" else hybrid for b in backends]
     return {"per_node": nodes,
             "pinned_host": sum(n["pinned_host"] for n in nodes),
             "device": sum(n["device_staging"] + n["device_pool"]
@@ -1454,6 +1475,699 @@ async def _store(ctx, root: Path) -> dict:
     return out
 
 
+# --- the Garage node: table/ and model/ over the block store (slice 3b) ---
+
+# node i's codec backend: the writer (node 0) and nodes 2-5 put every
+# device call on the card, so no gate can route round it; node 1 runs
+# the hybrid stack users run (its launches are printed, not required)
+GARAGE_BACKENDS = ("cuda", "hybrid", "cuda", "cuda", "cuda", "cuda")
+# the erasure-coded storage class of tests/test_model.py make_ec_cluster
+# (meta "3", data "none", write-time distributed parity) at the codec's
+# default geometry.  repair_ppr off: with partial-parallel repair (the
+# default) each survivor scales its piece on the host (gf_scale, numpy in
+# both packages) and no decode reaches the GF kernel; whole-shard repair
+# decodes every codeword through the reader's feeder (K3)
+GARAGE_CODEC = {"rs_data": 8, "rs_parity": 4, "store_parity": True,
+                "parity_on_write": True, "parity_distribute": True,
+                "repair_ppr": False}
+GARAGE_NEEDS = {"garage_write": ("blake2s", "gf_apply"),
+                "garage_degraded_get": ("gf_apply",),
+                "garage_heal": ("gf_apply",),
+                "garage_scrub": ("fused_scrub",)}
+# the GF bodies a path may run: encodes (k8r4) beside the decodes of one
+# lost row (k8r1) or two (k8r2: a codeword's members sit on distinct
+# nodes, so two dead nodes take at most two of them, and the chain repair
+# decodes both when one survivor owns both); a heal writes blocks that
+# join local sidecar codewords
+GARAGE_BODIES = {"garage_write": {"k8r4"},
+                 "garage_degraded_get": {"k8r1", "k8r4"},
+                 "garage_heal": {"k8r1", "k8r2", "k8r4"}}
+
+
+class NodeTally:
+    """What one node's codec did, counted at its seams: each call of its
+    CudaCodec's `_gf` (one GF kernel launch on the card; the fused scrub
+    calls the kernel itself and is not counted here) by body, with the
+    codewords it carried (its batch dimension); on a hybrid node, the
+    RS encodes and decodes its CPU floor ran; and the feeder's inline
+    encode and decode dispatches into the codec (`rs_encode_ragged`,
+    `rs_reconstruct_ragged`; a hybrid node's transport dispatches reach
+    `_gf` without them).  The kernel wrappers' launch counters are
+    process-wide and six nodes share this process: the tallies attribute
+    launches to nodes, and each path checks that they add up to the
+    counter."""
+
+    SEAMS = ("gf", "cpu_encode", "cpu_decode", "feeder_encode",
+             "feeder_decode")
+
+    def __init__(self, codec, k: int):
+        from garage_tpu_torch.ops.cuda_gf import instantiation
+
+        self.lock = threading.Lock()
+        self.reset()
+        dev = getattr(codec, "tpu", codec)
+        check(dev is not None, "a hybrid node has no device codec")
+
+        def wrap(obj, name, seam, key_fn, codewords_fn):
+            inner = getattr(obj, name)
+
+            def counted(*a):
+                out = inner(*a)
+                self._add(seam, key_fn(*a), codewords_fn(*a))
+                return out
+            setattr(obj, name, counted)
+
+        wrap(dev, "_gf", "gf",
+             lambda u8, c: instantiation(int(u8.shape[1]), int(c.shape[0])),
+             lambda u8, c: int(u8.shape[0]))
+        cpu = getattr(codec, "cpu", None)
+        if cpu is not None:
+            wrap(cpu, "rs_encode_blocks", "cpu_encode", lambda b: "all",
+                 lambda b: -(-len(b) // k))
+            wrap(cpu, "rs_reconstruct", "cpu_decode", lambda s, *a: "all",
+                 lambda s, *a: int(np.prod(s.shape[:-2])))
+        wrap(codec, "rs_encode_ragged", "feeder_encode", lambda g: "all",
+             lambda g: sum(-(-len(x) // k) for x in g))
+        wrap(codec, "rs_reconstruct_ragged", "feeder_decode",
+             lambda items: "all",
+             lambda items: sum(int(it[0].shape[0]) for it in items))
+
+    def reset(self) -> None:
+        with self.lock:
+            self.calls = {s: {} for s in self.SEAMS}
+            self.codewords = {s: {} for s in self.SEAMS}
+
+    def _add(self, seam: str, key: str, codewords: int) -> None:
+        with self.lock:
+            c, w = self.calls[seam], self.codewords[seam]
+            c[key] = c.get(key, 0) + 1
+            w[key] = w.get(key, 0) + codewords
+
+    def gf_calls(self) -> int:
+        return sum(self.calls["gf"].values())
+
+    def snapshot(self) -> dict:
+        with self.lock:
+            out = {"gf_launches": dict(self.calls["gf"]),
+                   "gf_codewords": dict(self.codewords["gf"])}
+            for seam in self.SEAMS[1:]:
+                out[f"{seam}_calls"] = self.calls[seam].get("all", 0)
+                out[f"{seam}_codewords"] = self.codewords[seam].get("all", 0)
+            return out
+
+
+async def garage_nodes(root: Path, blk: int) -> list:
+    """Six port Garage nodes on loopback, each built from its Config
+    (Garage(config): the codec on the card), meshed with every peer's
+    address recorded both ways, the peering loop running, one applied
+    layout (zone dc1, equal capacity) and the workers spawned, as
+    tests/test_model.py make_ec_cluster wires them."""
+    from garage_tpu_torch.model import Garage
+    from garage_tpu_torch.rpc.layout import ClusterLayout, NodeRole
+    from garage_tpu_torch.utils.config import config_from_dict
+
+    gs = []
+    for i, backend in enumerate(GARAGE_BACKENDS):
+        gs.append(Garage(config_from_dict({
+            "metadata_dir": str(root / f"n{i}" / "meta"),
+            "data_dir": str(root / f"n{i}" / "data"),
+            "replication_mode": "3", "data_replication_mode": "none",
+            "block_size": blk, "db_engine": "sqlite",
+            "rpc_bind_addr": "127.0.0.1:0", "rpc_secret": "chip-smoke-ec",
+            "bootstrap_peers": [],
+            "codec": {"backend": backend, **GARAGE_CODEC}})))
+    for g in gs:
+        await g.system.netapp.listen("127.0.0.1:0")
+    ports = [g.system.netapp._server.sockets[0].getsockname()[1] for g in gs]
+    for i, a in enumerate(gs):
+        for j, b in enumerate(gs):
+            if i < j:
+                await a.system.netapp.connect(f"127.0.0.1:{ports[j]}",
+                                              expected_id=b.system.id)
+            if i != j:
+                a.system.peering.add_peer(f"127.0.0.1:{ports[j]}",
+                                          b.system.id)
+        a.config.rpc_public_addr = f"127.0.0.1:{ports[i]}"
+        a.system.peering.start()
+    lay = gs[0].system.layout
+    for g in gs:
+        lay.stage_role(bytes(g.system.id), NodeRole("dc1", 1000))
+    lay.apply_staged_changes()
+    enc = lay.encode()
+    for g in gs:
+        g.system.layout = ClusterLayout.decode(enc)
+        g.system._rebuild_ring()
+        check(g.system.ring.ready, "garage: ring not ready after the layout")
+        g.spawn_workers()
+    return gs
+
+
+def garage_objects(rng, nblocks: int, blk: int) -> list:
+    """Object sizes in bytes, 1 to 64 blocks each (a partial last block
+    where the size says so), drawn until they hold `nblocks` blocks; the
+    last object is cut to fit."""
+    sizes, left = [], nblocks
+    while left:
+        size = int(rng.integers(blk, 64 * blk + 1))
+        size = min(size, left * blk)
+        sizes.append(size)
+        left -= -(-size // blk)
+    return sizes
+
+
+def recoverable_after(entries, dead: set, node_of, index_nodes) -> tuple:
+    """(by pieces, by pieces and index quorum) for one lost member: a
+    live codeword keeps >= k pieces (surviving members, implicit zero
+    shards, surviving parity), and (the second) at most one of the
+    member's three parity-index replicas died."""
+    pieces = quorum = False
+    for ent in entries:
+        live = sum(1 for mh in ent.members if node_of(mh) not in dead)
+        live += ent.k - len(ent.members)
+        live += sum(1 for ph in ent.parity_hashes if node_of(ph) not in dead)
+        if live >= ent.k:
+            pieces = True
+            quorum = quorum or sum(1 for x in index_nodes(ent.member)
+                                   if x in dead) <= 1
+    return pieces, quorum
+
+
+def phase_garage(ctx) -> dict:
+    """The metadata plane and the Garage node on the card: write-time RS
+    encode, degraded-read decode and the two-node-loss rebuild through
+    six Garage nodes, every byte checked against hashlib and the numpy
+    oracle."""
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_garage_"))
+    try:
+        return asyncio.run(_garage(ctx, root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+async def _garage(ctx, root: Path) -> dict:
+    torch = ctx["torch"]
+    from garage_tpu_torch.block.parity import unpack_parity_shard
+    from garage_tpu_torch.model.s3.object_table import (
+        Object, ObjectVersion, ObjectVersionData, ObjectVersionHeaders,
+        ObjectVersionMeta)
+    from garage_tpu_torch.model.s3.version_table import Version
+    from garage_tpu_torch.ops import cuda_blake2s, cuda_codec, cuda_gf, gf256
+    from garage_tpu_torch.rpc.layout import ClusterLayout
+    from garage_tpu_torch.table.merkle import EMPTY_HASH
+    from garage_tpu_torch.table.schema import hash_partition_key
+    from garage_tpu_torch.tools import gf_tune
+    from garage_tpu_torch.utils.crdt import now_msec
+    from garage_tpu_torch.utils.data import Hash, gen_uuid
+
+    mods = (cuda_blake2s, cuda_gf, cuda_codec, gf_tune)
+    blk, nblocks = ctx["block"], ctx["garage_blocks"]
+    k, m = GARAGE_CODEC["rs_data"], GARAGE_CODEC["rs_parity"]
+    oracle, mat = ctx["oracle"], gf256.rs_parity_matrix(k, m)
+    reck = store_memory_reckoning(blk, GARAGE_BACKENDS)
+    log(f"[garage] memory reckoning at the reference defaults, upper bounds "
+        f"per node ({', '.join(GARAGE_BACKENDS)}): "
+        f"{json.dumps(reck['per_node'])}; six nodes: pinned host "
+        f"{reck['pinned_host'] / 2**30:.2f} GiB, device "
+        f"{reck['device'] / 2**30:.2f} GiB of the card's "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t_build = time.perf_counter()
+    gs = await garage_nodes(root, blk)
+    build_s = time.perf_counter() - t_build
+    for i, g in enumerate(gs):
+        codec = g.block_manager.codec
+        dev = getattr(codec, "device", None)
+        check(str(dev).startswith("cuda"), f"garage node {i}: codec "
+              f"{type(codec).__name__} is on {dev}, not the card")
+    hy = gs[1].block_manager.codec
+    check(getattr(hy, "_governor_ratio", None) == gs[1].governor.ratio,
+          "garage node 1: the hybrid codec has not the node's governor "
+          "(set_governor)")
+    tallies = [NodeTally(g.block_manager.codec, k) for g in gs]
+    ids = [bytes(g.system.id) for g in gs]
+    log(f"[garage] on {ctx['card']}: 6 Garage nodes on loopback (meta "
+        f"replication 3, data 'none', sqlite, {blk} B blocks, RS({k},{m}) "
+        f"store_parity + parity_on_write + parity_distribute, repair_ppr "
+        f"off): codecs {[type(g.block_manager.codec).__name__ for g in gs]} "
+        f"built from Config in {build_s:.2f} s; node 1's hybrid codec "
+        f"carries its governor's ratio ({gs[1].governor.ratio():.3f})")
+
+    by_path, out = {}, {"build_s": build_s, "memory_reckoning": reck}
+
+    def start_path():
+        reset_counts(torch, mods)
+        for t in tallies:
+            t.reset()
+
+    def end_path(path, nodes=None):
+        torch.cuda.synchronize()
+        counts = counts_now(mods)
+        counts["by_node"] = {i: tallies[i].snapshot()
+                             for i in (nodes or range(len(gs)))}
+        by_path[path] = counts
+        for name in GARAGE_NEEDS.get(path, ()):
+            check(counts[name] > 0,
+                  f"kernel {name} was not launched on the {path} path")
+        ran = {b for b, n in counts["gf_apply_by"].items() if n}
+        if path in GARAGE_BODIES:
+            check(ran <= GARAGE_BODIES[path], f"the {path} path ran GF "
+                  f"bodies {sorted(ran)}, not within "
+                  f"{sorted(GARAGE_BODIES[path])}")
+            # every GF launch of the path came through some node's codec
+            tallied = sum(tallies[i].gf_calls() for i in
+                          (nodes or range(len(gs))))
+            check(tallied == counts["gf_apply"], f"the {path} path: "
+                  f"{counts['gf_apply']} GF launches, {tallied} through "
+                  "the nodes' codecs")
+        log(f"[garage] launches on the {path} path: "
+            f"{json.dumps({n: counts[n] for n in KERNELS})}, GF by body "
+            f"{json.dumps(counts['gf_apply_by'])}; by node "
+            f"{json.dumps(counts['by_node'])}")
+        return counts
+
+    async def bounded(coros, width=16):
+        sem = asyncio.Semaphore(width)
+
+        async def one(c):
+            async with sem:
+                return await c
+        return await asyncio.gather(*[one(c) for c in coros])
+
+    # 1. write (BASELINE config #3): objects of 1-64 blocks through node
+    # 0: each block hashed by its feeder (the PUT path's call) and
+    # written with rpc_put_block, then the Version and Object rows
+    rng = np.random.default_rng(ctx["seed"])
+    sizes = garage_objects(rng, nblocks, blk)
+    objects = []
+    for size in sizes:
+        objects.append([rng.bytes(min(blk, size - off))
+                        for off in range(0, size, blk)])
+    total = sum(sizes)
+    n0 = gs[0]
+    bm0 = n0.block_manager
+    bucket = gen_uuid()
+    hashes, by_hash = [], {}
+    sem = asyncio.Semaphore(16)
+
+    lat = {"hash": [], "put": []}
+
+    async def put_block(b):
+        async with sem:
+            t = time.perf_counter()
+            d = (await bm0.feeder.hash_async([b], peers=16))[0]
+            t1 = time.perf_counter()
+            check(bytes(d) == hashlib_digest(b), "garage PUT digest != hashlib")
+            h = Hash(bytes(d))
+            await bm0.rpc_put_block(h, b)
+            lat["hash"].append(t1 - t)
+            lat["put"].append(time.perf_counter() - t1)
+            return h
+
+    async def put_object(oi, blocks):
+        hs = await asyncio.gather(*[put_block(b) for b in blocks])
+        vu = gen_uuid()
+        ver = Version.new(vu, bytes(bucket), f"obj{oi:04d}")
+        off = 0
+        for h, b in zip(hs, blocks):
+            ver.add_block(0, off, bytes(h), len(b))
+            off += len(b)
+            by_hash[bytes(h)] = b
+        await n0.version_table.insert(ver)
+        meta = ObjectVersionMeta.new(ObjectVersionHeaders.new(), off,
+                                     f"etag{oi}")
+        await n0.object_table.insert(Object(bucket, f"obj{oi:04d}", [
+            ObjectVersion(vu, now_msec(), [
+                "complete", ObjectVersionData.first_block(meta,
+                                                          bytes(hs[0]))])]))
+        return hs
+
+    start_path()
+    t0 = time.perf_counter()
+    for hs in await asyncio.gather(*[put_object(oi, b)
+                                     for oi, b in enumerate(objects)]):
+        hashes.extend(hs)
+    put_s = time.perf_counter() - t0
+    await bm0.ec_accumulator.drain()
+    for g in gs:
+        await g.block_manager.write_parity.drain()
+    write_s = time.perf_counter() - t0
+    write = end_path("garage_write")
+    check(len(by_hash) == nblocks, f"garage: {len(by_hash)} distinct blocks "
+          f"of {nblocks}")
+    ec0, wp0 = bm0.ec_accumulator, bm0.write_parity
+    t0n = write["by_node"][0]
+    cw0 = ec0.codewords_encoded + wp0.codewords_encoded
+    check(t0n["feeder_encode_codewords"] == cw0, f"garage node 0: {cw0} "
+          f"codewords encoded, {t0n['feeder_encode_codewords']} through its "
+          "feeder")
+    check(t0n["gf_launches"].get("k8r4", 0) == t0n["feeder_encode_calls"]
+          and t0n["gf_codewords"].get("k8r4", 0) == cw0,
+          f"garage node 0: {t0n['gf_launches']} K2 launches carrying "
+          f"{t0n['gf_codewords']} codewords for {t0n['feeder_encode_calls']} "
+          f"feeder encode dispatches of {cw0} codewords")
+    log(f"[garage] write: {len(sizes)} objects, {nblocks} blocks "
+        f"({total / 2**30:.3f} GiB): PUT {put_s:.3f} s, then the parity "
+        f"drain, {write_s:.3f} s in all = {total / write_s / 2**20:.1f} "
+        f"MiB/s; node 0 encoded {ec0.codewords_encoded} distributed "
+        f"codewords ({ec0.distributor.codewords_distributed} distributed, "
+        f"{nblocks / max(1, ec0.codewords_encoded):.2f} members each) and "
+        f"{wp0.codewords_encoded} local sidecar codewords in "
+        f"{t0n['feeder_encode_calls']} feeder dispatches = "
+        f"{t0n['gf_launches'].get('k8r4', 0)} K2 launches; local sidecar "
+        f"codewords per node "
+        f"{[g.block_manager.write_parity.codewords_encoded for g in gs]}")
+    q = {k: np.percentile(v, [50, 90]) * 1e3 for k, v in lat.items()}
+    log(f"[garage] write: per block, 16 in flight: feeder hash_async "
+        f"p50/p90 {q['hash'][0]:.1f}/{q['hash'][1]:.1f} ms, rpc_put_block "
+        f"{q['put'][0]:.1f}/{q['put'][1]:.1f} ms")
+    out.update(objects=len(sizes), write_bytes=total, put_s=put_s,
+               put_block_ms_p50=q["put"][0], hash_ms_p50=q["hash"][0],
+               write_s=write_s, write_mibs=total / write_s / 2**20,
+               distributed_codewords=ec0.codewords_encoded,
+               sidecar_codewords_n0=wp0.codewords_encoded)
+
+    # every block gains a live parity-index row; every codeword's parity
+    # shards, fetched back and unpacked, equal the numpy oracle
+    t1 = time.perf_counter()
+
+    async def live_rows(h):
+        ents = await n0.parity_index_table.get_range(bytes(h), None)
+        return [e for e in ents if not e.is_tombstone()]
+
+    rows = await bounded([live_rows(h) for h in hashes], 32)
+    entries = {bytes(h): r for h, r in zip(hashes, rows)}
+    bare = [h for h, r in entries.items() if not r]
+    check(not bare, f"garage: {len(bare)} of {nblocks} blocks have no live "
+          "parity-index row")
+    codewords = {}
+    for r in rows:
+        for e in r:
+            codewords.setdefault(bytes(e.gid), e)
+
+    node_index = {x: i for i, x in enumerate(ids)}
+
+    def holder(h):
+        return node_index[bytes(bm0.replication.write_nodes(Hash(h))[0])]
+
+    async def parity_of(e):
+        # each shard read back from the node the ring places it on
+        blobs = [await gs[holder(bytes(ph))].block_manager.read_block(
+            Hash(bytes(ph))) for ph in e.parity_hashes]
+        return [unpack_parity_shard(b.decompressed()) for b in blobs]
+
+    got = await bounded([parity_of(e) for e in codewords.values()], 8)
+    for e, shards in zip(codewords.values(), got):
+        width = max(e.lengths)
+        nm = len(e.members)
+        data = np.zeros((nm, width), np.uint8)
+        for i, mh in enumerate(e.members):
+            b = by_hash[bytes(mh)]
+            data[i, :len(b)] = np.frombuffer(b, np.uint8)
+        want = oracle.apply(mat[:, :nm], data[None])[0]
+        check(all(s is not None for s in shards)
+              and np.array_equal(np.stack([np.frombuffer(s, np.uint8)
+                                           for s in shards]), want),
+              f"garage: codeword {bytes(e.gid).hex()[:12]}'s parity != "
+              "numpy GF(2^8)")
+    log(f"[garage] every block has a live parity-index row; "
+        f"{len(codewords)} codewords' {m} parity shards, read back from "
+        f"the nodes the ring places them on and unpacked, equal numpy "
+        f"GF(2^8) over their zero-padded members "
+        f"({time.perf_counter() - t1:.1f} s)")
+    out.update(codewords=len(codewords))
+
+    # 2. degraded GET: 8 covered blocks lose their sole copy, resync is
+    # stubbed out (tests/test_model.py:1370), node 0 reads them
+    cand = [h for h in hashes if holder(h) != 0]
+    pick = [cand[int(i)] for i in rng.choice(len(cand), 8, replace=False)]
+    for g in gs:
+        g.block_resync.put_to_resync = lambda *a, **kw: None
+    for h in pick:
+        bmh = gs[holder(h)].block_manager
+        found = bmh.find_block(h)
+        check(found is not None, "garage: a picked block is not on its holder")
+        os.remove(found[0])
+    wb0 = bm0.heal_counts.get("writeback", 0)
+    start_path()
+    lat = []
+    for h in pick:
+        t = time.perf_counter()
+        b = await bm0.rpc_get_block(h)
+        lat.append(time.perf_counter() - t)
+        check(b == by_hash[bytes(h)], "garage: a degraded GET returned "
+              "other bytes")
+    deg = end_path("garage_degraded_get")
+    deadline = time.monotonic() + 60
+    while not all(gs[holder(h)].block_manager.is_block_present(h)
+                  for h in pick):
+        check(time.monotonic() < deadline, "garage: the degraded GETs' "
+              "write-back did not restore every copy in 60 s")
+        await asyncio.sleep(0.05)
+    for h in pick:
+        back = await gs[holder(h)].block_manager.read_block(h)
+        check(back.decompressed() == by_hash[bytes(h)],
+              "garage: a written-back copy differs")
+    for g in gs:
+        del g.block_resync.put_to_resync
+    wb = bm0.heal_counts.get("writeback", 0) - wb0
+    k3 = deg["by_node"][0]
+    check(k3["gf_launches"].get("k8r1", 0) >= len(pick),
+          f"garage: {k3['gf_launches']} GF launches on the reading node for "
+          f"{len(pick)} degraded GETs")
+    check(wb >= len(pick), f"garage: {wb} write-back heals on the reading "
+          f"node for {len(pick)} degraded GETs")
+    log(f"[garage] degraded GET on node 0 of {len(pick)} blocks whose sole "
+        f"copy was deleted (resync stubbed): bytes exact, latency ms "
+        f"{[round(x * 1e3, 3) for x in lat]} (median "
+        f"{sorted(lat)[len(lat) // 2] * 1e3:.3f}); K3 k8r1 launches on node "
+        f"0: {k3['gf_launches'].get('k8r1', 0)}; write-back heals {wb}, "
+        f"every copy back on its holder, bit-exact")
+    out.update(degraded_get_ms=[x * 1e3 for x in lat], writeback=wb)
+
+    # 3. two-node loss (BASELINE config #4): predict, kill, drop from the
+    # layout on the survivors, wait for the heal
+    dead_i = sorted(int(i) for i in rng.choice(range(1, len(gs)), 2,
+                                               replace=False))
+    dead = {ids[i] for i in dead_i}
+
+    def node_of(h):
+        return bytes(bm0.replication.write_nodes(Hash(bytes(h)))[0])
+
+    def index_nodes(h):
+        return {bytes(x) for x in n0.parity_index_table.replication.read_nodes(
+            hash_partition_key(bytes(h)))}
+
+    lost = [h for h in hashes if node_of(h) in dead]
+    predicted, quorum_only = [], 0
+    for h in lost:
+        pieces, quorum = recoverable_after(entries[bytes(h)], dead, node_of,
+                                           index_nodes)
+        if pieces:
+            predicted.append(h)
+            quorum_only += not quorum
+    healed_cw = {bytes(e.gid) for h in predicted for e in entries[bytes(h)]}
+    log(f"[garage] two-node loss: nodes {dead_i} hold {len(lost)} of the "
+        f"{nblocks} blocks; predicted recoverable (>= {k} live pieces, "
+        f"implicit zero shards counted): {len(predicted)} in "
+        f"{len(healed_cw)} codewords, of them {quorum_only} whose index "
+        f"partition loses two of its three replicas (table sync carries "
+        f"the rows from the third)")
+    for g in gs:
+        g.block_manager.blocks_reconstructed = 0
+    for i in dead_i:
+        await gs[i].shutdown()
+    survivors = [i for i in range(len(gs)) if i not in dead_i]
+    start_path()
+    t_lay = time.perf_counter()
+    slay = gs[survivors[0]].system.layout
+    for x in dead:
+        slay.stage_role(x, None)
+    slay.apply_staged_changes()
+    senc = slay.encode()
+    for i in survivors:
+        gs[i].system.layout = ClusterLayout.decode(senc)
+        gs[i].system._rebuild_ring()
+    bs = gs[survivors[0]].block_manager
+
+    def primary(h):
+        return gs[node_index[bytes(bs.replication.write_nodes(h)[0])]]
+
+    waiting = set(range(len(predicted)))
+    heal_s, curve = None, []  # (seconds after the layout change, healed)
+    ratios = []  # the survivors' governor ratio (background throttle)
+    deadline = time.monotonic() + ctx["heal_timeout_s"]
+    while waiting:
+        check(time.monotonic() < deadline, f"garage: {len(waiting)} of "
+              f"{len(predicted)} recoverable blocks not healed in "
+              f"{ctx['heal_timeout_s']} s")
+        left = {j for j in waiting if not primary(
+            predicted[j]).block_manager.is_block_present(predicted[j])}
+        heal_s = time.perf_counter() - t_lay
+        if len(left) < len(waiting):
+            curve.append((round(heal_s, 2), len(predicted) - len(left)))
+        waiting = left
+        ratios.append(min(gs[i].governor.ratio() for i in survivors))
+        await asyncio.sleep(0.1)
+    # let the schedulers finish their walks before the counts are read
+    deadline = time.monotonic() + 120
+    while not all(gs[i].rebuild_scheduler.idle() for i in survivors):
+        check(time.monotonic() < deadline, "garage: the rebuild schedulers "
+              "did not go idle in 120 s")
+        await asyncio.sleep(0.1)
+    await asyncio.sleep(1.0)
+    heal = end_path("garage_heal", survivors)
+    pset = {bytes(h) for h in predicted}
+    extra = [h for h in lost if bytes(h) not in pset and any(
+        gs[i].block_manager.is_block_present(h) for i in survivors)]
+    recon = {i: gs[i].block_manager.blocks_reconstructed for i in survivors}
+    # codewords decoded: on the card (K3) and on the hybrid's CPU floor
+    dec_cw = sum(n for i in survivors for b, n in
+                 heal["by_node"][i]["gf_codewords"].items() if b != "k8r4")
+    dec_cw += sum(heal["by_node"][i]["cpu_decode_codewords"]
+                  for i in survivors)
+    k3_launches = sum(heal["by_node"][i]["gf_launches"].get(b, 0)
+                      for i in survivors for b in ("k8r1", "k8r2", "k8r3"))
+    geo = {i: gs[i].block_manager.geometry_cpu_decodes for i in range(len(gs))}
+    rb = {i: {"healed": gs[i].rebuild_scheduler.blocks_healed,
+              "codewords": gs[i].rebuild_scheduler.codewords_rebuilt,
+              "moved_left_to_resync": gs[i].rebuild_scheduler.moved_rows}
+          for i in survivors}
+    log(f"[garage] heal: the {len(predicted)} predicted blocks on their new "
+        f"primaries {heal_s:.3f} s after the layout change; "
+        f"{len(extra)} of the other {len(lost) - len(predicted)} lost "
+        f"blocks present; blocks_reconstructed by survivor {recon}; "
+        f"rebuild schedulers {json.dumps(rb)}; "
+        f"{dec_cw} codewords decoded ({k3_launches} K3 launches; node 1's "
+        f"CPU floor {heal['by_node'].get(1, {}).get('cpu_decode_codewords')})"
+        f" for {len(healed_cw)} codewords to heal; "
+        f"geometry-mismatch CPU decodes {sum(geo.values())}; heal sources "
+        f"{json.dumps({i: dict(gs[i].block_manager.heal_counts) for i in survivors})}")
+    for h in predicted:
+        b = await primary(h).block_manager.read_block(h)
+        check(b.decompressed() == by_hash[bytes(h)],
+              "garage: a healed block differs")
+    check(not extra, f"garage: {len(extra)} blocks predicted lost are "
+          "present again")
+    check(sum(recon.values()) == len(predicted), f"garage: survivors "
+          f"report {recon} blocks reconstructed, {len(predicted)} predicted")
+    check(dec_cw >= len(healed_cw), f"garage: {dec_cw} codewords decoded "
+          f"on the survivors, {len(healed_cw)} to heal")
+    for i in survivors:
+        t = heal["by_node"][i]
+        k3_cw = sum(n for b, n in t["gf_codewords"].items() if b != "k8r4")
+        if GARAGE_BACKENDS[i] == "cuda":
+            check(k3_cw == t["feeder_decode_codewords"], f"garage node "
+                  f"{i}: {t['feeder_decode_codewords']} codewords decoded "
+                  f"through its feeder, {k3_cw} through K3")
+    check(not any(geo.values()), f"garage: geometry-mismatch CPU decodes "
+          f"{geo}")
+    marks = sorted({min(len(curve) - 1, int(q * len(curve)))
+                    for q in (0, 0.1, 0.25, 0.5, 0.75, 0.9, 1)}) if curve else []
+    log(f"[garage] heal curve (s after the layout change, blocks healed): "
+        f"{[curve[i] for i in marks]}; the survivors' lowest governor "
+        f"ratio over the heal: median {np.median(ratios):.3f}, min "
+        f"{min(ratios):.3f}; rebuild paced sleeps "
+        f"{[gs[i].rebuild_scheduler.paced_sleeps for i in survivors]}")
+    out.update(heal_curve=curve)
+    out.update(dead=dead_i, lost=len(lost), predicted=len(predicted),
+               predicted_codewords=len(healed_cw),
+               predicted_without_index_quorum=quorum_only, heal_s=heal_s,
+               decoded_codewords=dec_cw, k3_heal_launches=k3_launches)
+
+    # 4. one pass of node 0's own ScrubWorker, once the parity index has
+    # converged on the survivors (the coverage refresh reads the local
+    # index rows: a partition the layout change moved to node 0 holds
+    # its rows there only after table sync copied them, from a replica
+    # or from an old holder offloading it)
+    def index_converged():
+        for i in survivors:
+            if gs[i].parity_index_table.data.merkle_todo_len():
+                return False
+        rep = n0.parity_index_table.replication
+        for p, first in rep.partitions():
+            owners = {bytes(x) for x in rep.write_nodes(first)}
+            roots = {}
+            for i in survivors:
+                root = bytes(gs[i].parity_index_table.merkle
+                             .partition_root_hash(p))
+                if ids[i] in owners:
+                    roots[root] = True
+                elif root != bytes(EMPTY_HASH):
+                    return False  # an old holder still offloading
+            if len(roots) != 1:
+                return False
+        return True
+
+    t = time.perf_counter()
+    deadline = time.monotonic() + 120
+    while not index_converged():
+        check(time.monotonic() < deadline, "garage: the parity index did "
+              "not converge on the survivors in 120 s")
+        await asyncio.sleep(0.25)
+    log(f"[garage] parity index converged on the survivors (every "
+        f"partition's Merkle root equal on its replicas, empty elsewhere) "
+        f"{time.perf_counter() - t:.3f} s after the heal")
+    w = n0.scrub_worker
+    w.set_tranquility(0)
+    # the blocks the refresh re-feeds: those its local index probe finds
+    # uncovered (ParityDistributor.locally_covered, asked only where this
+    # node holds the member's index partition)
+    refed = []
+    dist = n0.block_manager.ec_accumulator.distributor
+    covered_here = dist.locally_covered
+
+    def noted_covered(h):
+        hit = covered_here(h)
+        if not hit:
+            refed.append(h)
+        return hit
+
+    dist.locally_covered = noted_covered
+    done0, refreshed0 = w.state.time_last_complete, w.coverage_refreshed
+    start_path()
+    t, scrub_ms = time.perf_counter(), now_msec()
+    w.send_command("start")
+    deadline = time.monotonic() + 600
+    while w.state.running or w.state.time_last_complete == done0:
+        check(time.monotonic() < deadline, "garage: node 0's scrub pass did "
+              "not finish in 600 s")
+        await asyncio.sleep(0.05)
+    scrub_s = time.perf_counter() - t
+    end_path("garage_scrub", survivors)
+    del dist.locally_covered
+    check(len(refed) == w.coverage_refreshed - refreshed0, f"garage: the "
+          f"refresh re-fed {w.coverage_refreshed - refreshed0} blocks, "
+          f"{len(refed)} found uncovered")
+    check(w.state.corruptions == 0, f"garage: node 0's scrub found "
+          f"{w.state.corruptions} corruptions")
+    # a row the refresh wrote itself is younger than the pass
+    covered = [h for h, r in zip(refed, await bounded(
+        [live_rows(h) for h in refed], 32))
+        if any(e.timestamp < scrub_ms for e in r)]
+    check(not covered, f"garage: the scrub's coverage refresh re-fed "
+          f"{len(covered)} blocks that held live coverage")
+    log(f"[garage] node 0's ScrubWorker pass: {scrub_s:.3f} s, 0 "
+        f"corruptions, coverage refresh re-fed "
+        f"{w.coverage_refreshed - refreshed0} blocks, none with a live "
+        f"parity-index row")
+    out.update(scrub_s=scrub_s,
+               coverage_refreshed=w.coverage_refreshed - refreshed0)
+
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - mem0
+    log(f"[garage] measured: peak device allocation {peak / 2**30:.3f} GiB "
+        f"over the phase (reckoning {reck['device'] / 2**30:.2f} GiB)")
+    for i in survivors:
+        await gs[i].shutdown()
+    launches = {name: sum(c[name] for c in by_path.values())
+                for name in KERNELS}
+    out.update(launches=launches, launches_by_path=by_path,
+               peak_device_bytes=peak)
+    return out
+
+
 def phase_tune(ctx) -> dict:
     """T1's path: the GF variant sweep of tools/gf_tune.py on one staged
     group, each cell checked against the numpy oracle and timed."""
@@ -1597,7 +2311,7 @@ def gf_times(ctx, reps: int) -> dict:
     return res
 
 
-def phase_times(ctx, main: dict, prod: dict, store: dict,
+def phase_times(ctx, main: dict, prod: dict, store: dict, garage: dict,
                 tune: dict) -> list:
     torch = ctx["torch"]
     from garage_tpu_torch.ops.cuda_blake2s import blake2s_batch, g_chain_cycles
@@ -1661,13 +2375,13 @@ def phase_times(ctx, main: dict, prod: dict, store: dict,
                      "narrow_ms": gf["narrow"]["ms"],
                      "narrow_runtime_ms": gf["narrow"]["runtime_ms"],
                      "full_decode_ms": gf["full_decode"]["ms"],
-                     "launches_by_body": gf_bodies_launched(main, prod,
-                                                            store)},
+                     "launches_by_body": gf_bodies_launched(
+                         main, prod, store, garage)},
         "fused_scrub": {},
     }
     rows, bounds = [], {}
     by_path = {**main["launches_by_path"], **prod["launches_by_path"],
-               **store["launches_by_path"]}
+               **store["launches_by_path"], **garage["launches_by_path"]}
     for name in CODEC_KERNELS:
         bms, by = bound_ms(*work[name], dep[name])
         roof, roof_by = bound_ms(*work[name])
@@ -1677,7 +2391,8 @@ def phase_times(ctx, main: dict, prod: dict, store: dict,
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],
             "launches": (main["launches"][name] + prod["launches"][name]
-                         + store["launches"][name]),
+                         + store["launches"][name]
+                         + garage["launches"][name]),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": ctx["max_err"][name], "ms": ms[name],
             "plain_ms": ctx["plain_ms"][name], "bound_ms": bms,
@@ -1736,12 +2451,13 @@ def phase_times(ctx, main: dict, prod: dict, store: dict,
     return rows
 
 
-def gf_bodies_launched(main: dict, prod: dict, store: dict) -> dict:
-    """GF kernel launches by body over the main, production and store
-    paths."""
+def gf_bodies_launched(main: dict, prod: dict, store: dict,
+                       garage: dict) -> dict:
+    """GF kernel launches by body over the main, production, store and
+    garage paths."""
     total = {}
     for paths in (main["launches_by_path"], prod["launches_by_path"],
-                  store["launches_by_path"]):
+                  store["launches_by_path"], garage["launches_by_path"]):
         for counts in paths.values():
             for body, n in counts.get("gf_apply_by", {}).items():
                 total[body] = total.get(body, 0) + n
@@ -1763,6 +2479,9 @@ def main() -> int:
                     help="small shapes (64 KiB blocks, 64-block batches): a "
                          "first build-and-check of new kernels")
     ap.add_argument("--out", help="also write the measurements as JSON here")
+    ap.add_argument("--seed", type=int, default=SEED,
+                    help="seeds the garage phase's object sizes, data, "
+                         "degraded reads and the two nodes it kills")
     args = ap.parse_args()
 
     repo = Path(__file__).resolve().parent
@@ -1785,7 +2504,9 @@ def main() -> int:
            "scrub_lanes": 64 if args.quick else 256,
            "batches": 2 if args.quick else 4,
            "reps": 3 if args.quick else 5, "scrub_runs": 3,
-           "store_blocks": 128 if args.quick else 1024,
+           "store_blocks": 128 if args.quick else 512,
+           "garage_blocks": 128 if args.quick else 512,
+           "heal_timeout_s": 300, "seed": args.seed,
            "tune_reps": 10 if args.quick else 100}
     card = ctx["card"] = nvidia_smi_line()
     log(f"[card] {torch.cuda.get_device_name(0)} ({card}); torch "
@@ -1804,15 +2525,21 @@ def main() -> int:
     for name in CODEC_KERNELS:
         check(store_out["launches"][name] > 0,
               f"kernel {name} was not launched on the store path")
+    garage_out = phase_garage(ctx)
+    for name in CODEC_KERNELS:
+        check(garage_out["launches"][name] > 0,
+              f"kernel {name} was not launched on the garage path")
     tune_out = phase_tune(ctx)
-    rows = phase_times(ctx, main_out, prod_out, store_out, tune_out)
+    rows = phase_times(ctx, main_out, prod_out, store_out, garage_out,
+                       tune_out)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({
             "card": card, "kernels": rows, "build_s": ctx["build_s"],
             "main": {k: v for k, v in main_out.items()},
-            "production": prod_out, "store": store_out, "tune": tune_out,
+            "production": prod_out, "store": store_out,
+            "garage": garage_out, "tune": tune_out,
             "summary": ctx["summary"], "quick": args.quick}, indent=1,
             default=float))
     print(json.dumps({"kernels": rows}))

@@ -185,6 +185,10 @@ class BlockManager:
         # async h -> plain bytes | None, decoding from cross-node pieces
         self.parity_reconstructor = None
         self.blocks_reconstructed = 0
+        # degraded-read decodes of a codeword whose geometry differs from
+        # the live codec's: they run on a throwaway CpuCodec (a codec
+        # config change since the codeword was written), never on the card
+        self.geometry_cpu_decodes = 0
         # bandwidth-minimal degraded-read fetch planner (exact-k survivor
         # selection + partial-parallel repair, block/repair_plan.py);
         # None keeps the legacy sweep-everything gather
@@ -919,9 +923,15 @@ class BlockManager:
         original."""
         meta: dict = {}
         chunks = []
+        # a copy for storage (resync) skips the read path's last-resort
+        # decode: resync's own ladder runs after a failed fetch — the
+        # migration-aware peer sweep (one copy) before the codeword
+        # decode (k pieces) — and a row that merely moved to this node
+        # must be copied from the live node that holds it, not decoded
         async for c in self.rpc_get_block_streaming(h, order_tag,
                                                     meta_out=meta,
-                                                    idempotent=idempotent):
+                                                    idempotent=idempotent,
+                                                    decode=not for_storage):
             chunks.append(c)
         data = b"".join(chunks)
         if for_storage:
@@ -944,6 +954,7 @@ class BlockManager:
     async def rpc_get_block_streaming(
         self, h: Hash, order_tag: Optional[int] = None,
         meta_out: Optional[dict] = None, idempotent: bool = False,
+        decode: bool = True,
     ) -> AsyncIterator[bytes]:
         """Async-iterate a block's DECOMPRESSED bytes with mid-transfer
         node failover: if the serving node dies mid-stream, the read
@@ -1086,8 +1097,8 @@ class BlockManager:
         # succeeds, and requeue a resync so the copy is re-materialized
         # (the reference's only answer here is "another replica",
         # ref manager.rs:231-317; erasure coverage is this framework's
-        # addition)
-        if delivered == 0:
+        # addition).  `decode=False` leaves the caller to its own ladder.
+        if delivered == 0 and decode:
             data = None
             if self.parity_reconstructor is not None:
                 try:
@@ -1202,7 +1213,7 @@ class BlockManager:
         if raw is not None and bytes(
                 block_hash(raw, self.hash_algo)) == bytes(h):
             return raw
-        raw = None
+        raw, parity = None, False
         try:
             if not try_ring:
                 # caller just failed a full ring fetch (resync fallback);
@@ -1244,6 +1255,7 @@ class BlockManager:
                         await stream.aclose()  # stop the sender's pump
                         raise
                     raw = DataBlock(body, hdr.compressed).decompressed()
+                    parity = bool(resp.get("parity"))
                     break
                 except Exception as e:
                     tried.append(f"{bytes(nid).hex()[:8]}:{type(e).__name__}")
@@ -1258,6 +1270,11 @@ class BlockManager:
             logger.warning("sweep fetch of %s: hash mismatch",
                            bytes(h).hex()[:12])
             return None
+        if parity and not self.is_parity_block(h):
+            # the holder stored it as a distributed-parity shard: a copy
+            # resync writes from these bytes must stay out of the
+            # codeword accumulators and the scrub's coverage refresh too
+            self._parity_marks.insert(bytes(h), b"1")
         return raw
 
     async def drop_stray_copy(self, h: Hash) -> None:

@@ -1044,15 +1044,22 @@ class RepairPlanner:
             arrs.append(a)
         shards = np.stack(arrs)[None, :, :]
         feeder = getattr(mgr, "feeder", None)
-        live = feeder.codec.params if feeder is not None else None
-        if (feeder is not None and live.rs_data == k
-                and live.rs_parity == m):
-            out = await feeder.decode_async(shards, present,
-                                            list(targets), cls="bg")
+        live = mgr.codec.params
+        if live.rs_data == k and live.rs_parity == m:
+            if feeder is not None:
+                out = await feeder.decode_async(shards, present,
+                                                list(targets), cls="bg")
+            else:
+                out = await asyncio.to_thread(
+                    mgr.codec.rs_reconstruct, shards, present,
+                    list(targets))
         else:
+            # the codeword predates a codec config change: its geometry
+            # is not the live codec's (counted, see BlockManager)
             from ..ops.codec import CodecParams
             from ..ops.cpu_codec import CpuCodec
 
+            mgr.geometry_cpu_decodes += 1
             codec = CpuCodec(CodecParams(rs_data=k, rs_parity=m))
             out = await asyncio.to_thread(
                 codec.rs_reconstruct, shards, present, list(targets))
