@@ -80,12 +80,32 @@ Phases, each fatal on any mismatch or exception:
                   a scrub pass of node 0's own ScrubWorker.  Each node's
                   GF launches are attributed through its codec and must
                   add up to the kernel's counter.
-  7. tune       — T1's path: tools/gf_tune.py's sweep of the GF kernel's
+  7. daemon     — the daemon (slice 3c): three `python -m garage_tpu_torch
+                  -c nodeN.toml server` processes on localhost
+                  (BASELINE #1's dev cluster: replication 3, sqlite, RS(8,4)
+                  codec defaults; node 0 cuda, nodes 1-2 hybrid),
+                  configured through the port's CLI; 256 PutObjects of
+                  1 MiB, 16 in flight, and a 256 MiB multipart upload (16
+                  parts, 4 in flight, out of order) through node 0 with an
+                  S3 client of this script's own (http.client and its own
+                  SigV4); every object read back bit-exact through nodes
+                  0 and 1, a ranged GET across a block boundary, a K2V
+                  insert/read, the admin REST status, a /metrics scrape and
+                  a website GET; every block file on every node named by
+                  its hashlib BLAKE2s; node 0's block hashes all on the
+                  device; a byte flipped on node 2 found by the CLI's
+                  scrub on all three nodes, quarantined and resynced; the
+                  daemon pids in nvidia-smi's compute-apps; node 2 stopped
+                  by SIGTERM (exit 0 inside the worker deadline), every
+                  object read through node 0 meanwhile, node 2 restarted
+                  serving a GET.  Launch counts come from each daemon's
+                  `codec info`.
+  8. tune       — T1's path: tools/gf_tune.py's sweep of the GF kernel's
                   loop orders x tiles, each cell checked and timed, with
                   each variant's SASS census and the issue bound it
                   implies, beside the production GF kernel on the same
                   codewords.
-  8. times      — each kernel's time (CUDA events, after a warm-up,
+  9. times      — each kernel's time (CUDA events, after a warm-up,
                   launches queued behind a sleep kernel: tools/timing.py)
                   beside its bound (the larger of bytes over 3.35 TB/s,
                   the fewest 32-bit integer instructions over the SMs'
@@ -101,7 +121,9 @@ Phases, each fatal on any mismatch or exception:
 Launch counts are zeroed just before each path (main's scrub / put /
 decode / 1024-lane scrub, production's cold / warm / put / decode,
 store's put / get / each scrub pass, garage's write / degraded GET /
-heal / scrub, tune)
+heal / scrub, tune); each daemon process starts with its counts at 0
+and reports them through `codec info` (daemon_n0-n2, and node 2's
+restarted process);
 and read just after it; each path must have launched every kernel it
 runs, and the GF kernel only the body each path needs (GF_BODIES).
 The sizes are the reference configuration's defaults: 1 MiB
@@ -117,14 +139,21 @@ from __future__ import annotations
 import argparse
 import asyncio
 import hashlib
+import hmac
+import http.client
 import json
 import os
+import re
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.parse
+import xml.etree.ElementTree as ET
 from pathlib import Path
 
 import numpy as np
@@ -751,13 +780,15 @@ def counts_now(mods) -> dict:
 # instantiation for scrub, PUT hashing + encode; the two-row decode (rows
 # [2, 5] of a codeword missing shards 2 and 5) for the degraded reads; the
 # one-row decode beside the scrub's for the store's sidecar repair; the
-# runtime-(k, r) body nowhere
+# scrub's alone in each replication-3 daemon; the runtime-(k, r) body
+# nowhere
 GF_BODIES = {"scrub": {"k8r4"}, "put": {"k8r4"}, "decode": {"k8r2"},
              "scrub_1024": {"k8r4"}, "prod_scrub_cold": {"k8r4"},
              "prod_scrub_warm": {"k8r4"}, "prod_put": {"k8r4"},
              "prod_decode": {"k8r2"}, "store_scrub_n1": {"k8r4"},
              "store_rescrub_n1": {"k8r4"},
-             "store_repair_n2": {"k8r4", "k8r1"}}
+             "store_repair_n2": {"k8r4", "k8r1"}, "daemon_n0": {"k8r4"},
+             "daemon_n1": {"k8r4"}, "daemon_n2": {"k8r4"}}
 
 
 def check_gf_bodies(path: str, by_body: dict) -> None:
@@ -2168,6 +2199,703 @@ async def _garage(ctx, root: Path) -> dict:
     return out
 
 
+# --- the daemon: three server processes serving S3 (slice 3c) ---------------
+
+# node i's codec backend: node 0, the S3 entry point, puts every PUT hash
+# on the card; nodes 1 and 2 run the hybrid stack users run
+DAEMON_BACKENDS = ("cuda", "hybrid", "hybrid")
+DAEMON_PORTS = ("rpc", "s3", "admin", "web", "k2v")
+DAEMON_TOKEN = "chip-smoke-admin-token"
+DAEMON_BUCKET, DAEMON_SITE = "chip-smoke", "chip-site"
+WEB_ROOT = ".web.garage.localhost"
+# the reference's worker deadline at shutdown (server.py stop order:
+# S3 drain, servers, workers with their 8 s deadline, RPC, db) and a
+# margin for the interpreter's exit
+DAEMON_STOP_S = 8 + 7
+
+
+def free_ports(n: int) -> list:
+    socks = []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def http_call(port: int, method: str, target: str, body: bytes = b"",
+              headers=None, timeout: float = 600.0):
+    """(status, lower-cased headers, body) of one HTTP/1.1 request."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, target, body=body, headers=headers or {})
+        r = conn.getresponse()
+        data = r.read()
+        return r.status, {k.lower(): v for k, v in r.getheaders()}, data
+    finally:
+        conn.close()
+
+
+def _q(s: str, slash: bool = False) -> str:
+    return urllib.parse.quote(s, safe="-_.~" + ("/" if slash else ""))
+
+
+class SigV4Client:
+    """An S3 client on http.client that signs each request with AWS
+    Signature Version 4 (header auth) as the AWS specification writes it,
+    the way tests/independent_s3_client.py does.  It uses nothing of the
+    port, so a request the daemon accepts is two implementations of the
+    signature agreeing.  Like the AWS SDKs it retries a 503 (SlowDown,
+    DeadlineExceeded) after the Retry-After the daemon sends, at most
+    `retries` times, and counts each retry by its error code."""
+
+    def __init__(self, port: int, key_id: str, secret: str,
+                 region: str = "garage", retries: int = 3):
+        self.port, self.key_id = port, key_id
+        self.secret, self.region = secret, region
+        self.retries = retries
+        self.retried: dict = {}
+        self._lock = threading.Lock()
+
+    def request(self, method: str, path: str, query=(), body: bytes = b"",
+                headers=None, timeout: float = 600.0):
+        for attempt in range(self.retries + 1):
+            st, h, data = self._request(method, path, query, body, headers,
+                                        timeout)
+            if st != 503 or attempt == self.retries:
+                return st, h, data
+            code = re.search(rb"<Code>([^<]*)</Code>", data)
+            code = code.group(1).decode() if code else "?"
+            with self._lock:
+                self.retried[code] = self.retried.get(code, 0) + 1
+            time.sleep(min(5.0, float(h.get("retry-after", 1))))
+
+    def _signing_key(self, date: str) -> bytes:
+        k = b"AWS4" + self.secret.encode()
+        for part in (date, self.region, "s3", "aws4_request"):
+            k = hmac.new(k, part.encode(), hashlib.sha256).digest()
+        return k
+
+    def _request(self, method, path, query, body, headers, timeout):
+        amzdate = time.strftime("%Y%m%dT%H%M%SZ", time.gmtime())
+        payload = hashlib.sha256(body).hexdigest()
+        hdrs = {"host": f"127.0.0.1:{self.port}", "x-amz-date": amzdate,
+                "x-amz-content-sha256": payload}
+        hdrs.update({k.lower(): v for k, v in (headers or {}).items()})
+        qs = "&".join(f"{_q(k)}={_q(v)}" for k, v in sorted(query))
+        signed = ";".join(sorted(hdrs))
+        canonical = "\n".join([
+            method, _q(path, slash=True), qs,
+            "".join(f"{h}:{hdrs[h].strip()}\n" for h in sorted(hdrs)),
+            signed, payload])
+        scope = f"{amzdate[:8]}/{self.region}/s3/aws4_request"
+        sts = "\n".join(["AWS4-HMAC-SHA256", amzdate, scope,
+                         hashlib.sha256(canonical.encode()).hexdigest()])
+        sig = hmac.new(self._signing_key(amzdate[:8]), sts.encode(),
+                       hashlib.sha256).hexdigest()
+        hdrs["authorization"] = (
+            f"AWS4-HMAC-SHA256 Credential={self.key_id}/{scope}, "
+            f"SignedHeaders={signed}, Signature={sig}")
+        target = _q(path, slash=True) + (f"?{qs}" if qs else "")
+        return http_call(self.port, method, target, body, hdrs, timeout)
+
+
+class Daemon:
+    """One `python -m garage_tpu_torch -c nodeN.toml server` process: its
+    config (BASELINE #1's dev cluster: replication 3, sqlite, the given
+    block size and codec backend), ports, log files and Popen handle."""
+
+    def __init__(self, root: Path, i: int, ports: list, peers: list,
+                 backend: str, blk: int):
+        self.i, self.backend = i, backend
+        self.dir = root / f"node{i}"
+        for sub in ("meta", "data"):
+            (self.dir / sub).mkdir(parents=True)
+        self.ports = dict(zip(DAEMON_PORTS, ports))
+        p = self.ports
+        self.config = self.dir / "garage.toml"
+        self.config.write_text(f'''
+metadata_dir = "{self.dir / 'meta'}"
+data_dir = "{self.dir / 'data'}"
+db_engine = "sqlite"
+replication_mode = "3"
+block_size = {blk}
+rpc_bind_addr = "127.0.0.1:{p['rpc']}"
+rpc_public_addr = "127.0.0.1:{p['rpc']}"
+rpc_secret = "chip-smoke-daemon-secret"
+bootstrap_peers = [{", ".join(f'"127.0.0.1:{x}"' for x in peers)}]
+
+[codec]
+backend = "{backend}"
+
+[s3_api]
+s3_region = "garage"
+api_bind_addr = "127.0.0.1:{p['s3']}"
+
+[k2v_api]
+api_bind_addr = "127.0.0.1:{p['k2v']}"
+
+[s3_web]
+bind_addr = "127.0.0.1:{p['web']}"
+root_domain = "{WEB_ROOT}"
+
+[admin]
+api_bind_addr = "127.0.0.1:{p['admin']}"
+admin_token = "{DAEMON_TOKEN}"
+''')
+        self.proc = None
+        self.logs: list = []
+        self.t_spawn = 0.0
+
+    @property
+    def data_dir(self) -> Path:
+        return self.dir / "data"
+
+    def start(self, repo: Path, env: dict) -> None:
+        log_path = self.dir / f"daemon{len(self.logs)}.log"
+        self.logs.append(log_path)
+        with open(log_path, "wb") as f:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "garage_tpu_torch", "-c",
+                 str(self.config), "server"],
+                cwd=str(repo), env=env, stdout=f, stderr=subprocess.STDOUT)
+        self.t_spawn = time.perf_counter()
+
+    def log_text(self) -> str:
+        return self.logs[-1].read_text(errors="replace")
+
+    def tail(self, n: int = 40) -> str:
+        return "\n".join(self.log_text().splitlines()[-n:])
+
+    def check_alive(self) -> None:
+        rc = self.proc.poll()
+        check(rc is None, f"daemon {self.i} ({self.backend}) died with "
+              f"code {rc}; its log ends:\n{self.tail()}")
+
+    def stop(self, timeout: float) -> tuple:
+        """SIGTERM, then (exit code, seconds to exit); kills the process
+        and fails if it outlives `timeout`."""
+        t = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            fail(f"daemon {self.i} did not exit within {timeout} s of "
+                 f"SIGTERM; its log ends:\n{self.tail()}")
+        return rc, time.perf_counter() - t
+
+    def kill(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def daemon_cli(repo: Path, env: dict, d: Daemon, *args, timeout=120) -> str:
+    """One command of the port's CLI against daemon `d` (its config)."""
+    r = subprocess.run(
+        [sys.executable, "-m", "garage_tpu_torch", "-c", str(d.config),
+         *args], cwd=str(repo), env=env, capture_output=True, text=True,
+        timeout=timeout)
+    check(r.returncode == 0, f"CLI {' '.join(args)} on node {d.i} exited "
+          f"{r.returncode}: {r.stdout[-1500:]}{r.stderr[-1500:]}")
+    return r.stdout
+
+
+def compute_apps() -> list:
+    """(pid, device MiB) of every context on the card, as nvidia-smi
+    lists them."""
+    return [tuple(int(float(x)) for x in line.split(","))
+            for line in nvidia_smi("--query-compute-apps=pid,used_memory",
+                                   "--format=csv,noheader,nounits")]
+
+
+def gpu_memory_used_mib() -> int:
+    return int(nvidia_smi("--query-gpu=memory.used",
+                          "--format=csv,noheader,nounits")[0])
+
+
+def check_daemon_contexts(apps0: list, apps1: list, pids: list) -> str:
+    """The daemons hold contexts on the card: nvidia-smi lists each pid,
+    or, where its process namespace hides them (a container with its own
+    pid namespace may list every context as one pid), exactly one new
+    context per daemon."""
+    seen = [p for p, _m in apps1]
+    if any(p in pids for p in seen):
+        check(all(p in seen for p in pids), f"nvidia-smi compute-apps "
+              f"lists {seen}, not every daemon pid {pids}")
+        return f"compute-apps lists every daemon pid {pids}"
+    check(len(apps1) - len(apps0) == len(pids), f"nvidia-smi compute-apps "
+          f"lists {len(apps1)} contexts ({apps1}), {len(apps0)} before the "
+          f"daemons started; expected one more per daemon {pids}")
+    return (f"compute-apps lists {len(apps1) - len(apps0)} new contexts, one "
+            f"per daemon (its namespace shows pids {sorted(set(seen))}, not "
+            f"the daemons' {pids}, and each row's memory as the whole "
+            f"card's)")
+
+
+def block_files(data_dir: Path) -> dict:
+    """Every file under a node's data_dir by kind: blocks (64 hex digits,
+    optionally .zst) and quarantined copies (.corrupted); anything else
+    fails the phase."""
+    from garage_tpu_torch.block.block import DataBlock
+
+    found = {"blocks": {}, "corrupted": []}
+    for dirpath, _dirs, files in os.walk(data_dir):
+        for name in files:
+            path = Path(dirpath) / name
+            stem, _, ext = name.partition(".")
+            check(len(stem) == 64 and set(stem) <= set("0123456789abcdef"),
+                  f"unexpected file {path} in a data_dir")
+            if ext == "corrupted":
+                found["corrupted"].append(path)
+                continue
+            check(ext in ("", "zst"), f"unexpected file {path}")
+            raw = path.read_bytes()
+            data = (DataBlock(raw, compressed=True).decompressed()
+                    if ext == "zst" else raw)
+            found["blocks"][stem] = hashlib_digest(data).hex()
+    return found
+
+
+def daemon_info(repo: Path, env: dict, d: Daemon) -> dict:
+    """The daemon's own account of its codec (admin `codec info`)."""
+    return json.loads(daemon_cli(repo, env, d, "codec", "info"))
+
+
+def check_node0_hashing(info: dict, put_bytes: int) -> None:
+    """Node 0 (cuda) hashed every PUT byte on the card: its feeder routed
+    every block hash to the device, and the codec's bytes by side are
+    those hashes on the device and the Merkle trie's metadata hashing
+    (mhash, CPU-side by contract) on the CPU."""
+    routes = info["feeder"]["routes"]
+    hashed = routes.get("hash", {})
+    check(set(hashed) == {"tpu"} and hashed["tpu"]["bytes"] == put_bytes,
+          f"daemon 0: block hashes by side {json.dumps(hashed)}, expected "
+          f"{put_bytes} B on the device and none on the CPU")
+    mhash = routes.get("mhash", {}).get("cpu", {}).get("bytes", 0)
+    check(info["bytes"] == {"cpu": mhash, "tpu": put_bytes},
+          f"daemon 0: codec bytes by side {json.dumps(info['bytes'])}, "
+          f"expected {put_bytes} B on the device and the {mhash} B of "
+          "metadata hashing on the CPU")
+
+
+def pctl(xs: list, q: float) -> float:
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def phase_daemon(ctx) -> dict:
+    """Three `python -m garage_tpu_torch server` processes serving S3
+    from the card, configured through the port's CLI and driven over
+    HTTP by a client of this script's own."""
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_daemon_"))
+    daemons: list = []
+    try:
+        return _daemon(ctx, root, daemons)
+    except BaseException:
+        for d in daemons:
+            if d.logs:
+                log(f"[daemon] node {d.i}'s log ends:\n{d.tail(60)}")
+        raise
+    finally:
+        for d in daemons:
+            d.kill()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _daemon(ctx, root: Path, daemons: list) -> dict:
+    torch = ctx["torch"]
+    from concurrent.futures import ThreadPoolExecutor
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    repo, card, blk = ctx["repo"], ctx["card"], ctx["block"]
+    n_obj, n_parts = ctx["daemon_objects"], 16
+    part = 16 * blk
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    reck = store_memory_reckoning(blk, DAEMON_BACKENDS)
+    log(f"[daemon] memory reckoning at the reference defaults, upper bounds "
+        f"per daemon {json.dumps(reck['per_node'])}: a hybrid daemon pins "
+        f"at most (hybrid_window + 1) x device_batch_blocks x block_size = "
+        f"{reck['per_node'][1]['pinned_host'] / 2**30:.2f} GiB of host "
+        f"staging; three daemons: pinned host "
+        f"{reck['pinned_host'] / 2**30:.2f} GiB, device "
+        f"{reck['device'] / 2**30:.2f} GiB plus a CUDA context each")
+    ports = free_ports(len(DAEMON_PORTS) * len(DAEMON_BACKENDS))
+    ports = [ports[i::len(DAEMON_BACKENDS)] for i in range(len(DAEMON_BACKENDS))]
+    peers = [p[0] for p in ports]
+    for i, backend in enumerate(DAEMON_BACKENDS):
+        daemons.append(Daemon(root, i, ports[i], peers, backend, blk))
+    out = {"backends": list(DAEMON_BACKENDS), "memory_reckoning": reck}
+
+    def alive():
+        for d in daemons:
+            if d.proc is not None:
+                d.check_alive()
+
+    def wait_for(cond, what: str, timeout: float = 120.0, dt: float = 0.2):
+        deadline = time.monotonic() + timeout
+        while True:
+            alive()
+            v = cond()
+            if v:
+                return v
+            check(time.monotonic() < deadline, f"daemon: {what} within "
+                  f"{timeout} s")
+            time.sleep(dt)
+
+    def answers(port: int) -> bool:
+        try:
+            http_call(port, "GET", "/", timeout=2)
+            return True
+        except OSError:
+            return False
+
+    def lists(client) -> bool:
+        try:
+            return client.request("GET", "/", timeout=30)[0] == 200
+        except OSError:
+            return False
+
+    # 1. spawn; each daemon's S3 port answers (the client is not a key yet)
+    apps0, used0 = compute_apps(), gpu_memory_used_mib()
+    for d in daemons:
+        d.start(repo, env)
+    listen_s = {}
+    for d in daemons:
+        wait_for(lambda: answers(d.ports["s3"]), f"node {d.i}'s S3 port "
+                 "answering", timeout=180)
+        listen_s[d.i] = time.perf_counter() - d.t_spawn
+    log(f"[daemon] on {card}: 3 daemons spawned ({', '.join(DAEMON_BACKENDS)}; "
+        f"replication 3, sqlite, {blk} B blocks); spawn to S3 port answering "
+        + ", ".join(f"node {i} {s:.2f} s" for i, s in listen_s.items()))
+
+    # 2. the cluster, through the port's CLI (tests/test_integration.py's
+    # recipe): node ids, layout, a key, two buckets, scrub tranquility 0
+    cli_s = []
+
+    def cli(d, *args):
+        t = time.perf_counter()
+        r = daemon_cli(repo, env, d, *args)
+        cli_s.append(time.perf_counter() - t)
+        return r
+
+    def each(*args):
+        with ThreadPoolExecutor(len(daemons)) as ex:
+            return list(ex.map(lambda d: cli(d, *args), daemons))
+
+    ids = [x.strip().split("@")[0] for x in each("node-id")]
+    for nid in ids:
+        cli(daemons[0], "layout", "assign", nid, "-z", "dc1", "-c", "10G")
+    cli(daemons[0], "layout", "apply", "--version", "1")
+    wait_for(lambda: "healthy" in cli(daemons[0], "status"),
+             "the cluster healthy after the layout", dt=0.5)
+    made = cli(daemons[0], "key", "create", "chip-smoke-key")
+    key_id = next(l for l in made.splitlines() if "Key ID" in l).split()[-1]
+    secret = next(l for l in made.splitlines() if "Secret" in l).split()[-1]
+    for b in (DAEMON_BUCKET, DAEMON_SITE):
+        cli(daemons[0], "bucket", "create", b)
+        cli(daemons[0], "bucket", "allow", b, "--key", key_id, "--read",
+            "--write", "--owner")
+    cli(daemons[0], "bucket", "website", DAEMON_SITE, "--allow")
+    each("worker", "set", "scrub-tranquility", "0")
+    s3 = [SigV4Client(d.ports["s3"], key_id, secret) for d in daemons]
+    first_200 = {}
+    for d in daemons:
+        wait_for(lambda: lists(s3[d.i]),
+                 f"node {d.i}'s first S3 200 (signed ListBuckets)")
+        first_200[d.i] = time.perf_counter() - d.t_spawn
+    log(f"[daemon] configured through the CLI ({len(cli_s)} commands, "
+        f"{np.mean(cli_s):.2f} s each on average, none importing torch); "
+        f"spawn to first S3 200 "
+        + ", ".join(f"node {i} {s:.2f} s" for i, s in first_200.items()))
+    out.update(listen_s=listen_s, first_200_s=first_200,
+               cli_mean_s=float(np.mean(cli_s)), cli_calls=len(cli_s))
+
+    # 3. PUT: n 1-block objects, 16 in flight, and one multipart object of
+    # 16 parts of 16 blocks, 4 in flight, out of order; all through node 0
+    rng = np.random.default_rng([ctx["seed"], 7])
+    objs = {f"obj/{j:05d}": rng.bytes(blk) for j in range(n_obj)}
+    parts = [rng.bytes(part) for _ in range(n_parts)]
+    big_key = "multipart/big.bin"
+    sha = {k: hashlib.sha256(v).hexdigest() for k, v in objs.items()}
+    sha[big_key] = hashlib.sha256(b"".join(parts)).hexdigest()
+    sizes = {**{k: len(v) for k, v in objs.items()},
+             big_key: n_parts * part}
+    put_bytes = sum(sizes.values())
+
+    def put_one(key):
+        t = time.perf_counter()
+        st, _h, body = s3[0].request("PUT", f"/{DAEMON_BUCKET}/{key}",
+                                     body=objs[key])
+        check(st == 200, f"PutObject {key}: {st} {body[:300]!r}")
+        return time.perf_counter() - t
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(16) as ex:
+        put_lat = list(ex.map(put_one, objs))
+    put_wall = time.perf_counter() - t0
+    alive()
+    small = sum(len(v) for v in objs.values())
+    st, _h, body = s3[0].request("POST", f"/{DAEMON_BUCKET}/{big_key}",
+                                 query=[("uploads", "")])
+    check(st == 200, f"CreateMultipartUpload: {st} {body[:300]!r}")
+    upload_id = ET.fromstring(body).find(
+        "{http://s3.amazonaws.com/doc/2006-03-01/}UploadId").text
+    order = [int(x) for x in rng.permutation(n_parts)]
+
+    def put_part(j):
+        st, h, body = s3[0].request(
+            "PUT", f"/{DAEMON_BUCKET}/{big_key}", body=parts[j],
+            query=[("partNumber", str(j + 1)), ("uploadId", upload_id)])
+        check(st == 200, f"UploadPart {j + 1}: {st} {body[:300]!r}")
+        return j, h["etag"]
+
+    t1 = time.perf_counter()
+    with ThreadPoolExecutor(4) as ex:
+        etags = dict(ex.map(put_part, order))
+    done = ("<CompleteMultipartUpload>" + "".join(
+        f"<Part><PartNumber>{j + 1}</PartNumber><ETag>{etags[j]}</ETag></Part>"
+        for j in range(n_parts)) + "</CompleteMultipartUpload>").encode()
+    st, _h, body = s3[0].request("POST", f"/{DAEMON_BUCKET}/{big_key}",
+                                 query=[("uploadId", upload_id)], body=done)
+    check(st == 200 and b"CompleteMultipartUploadResult" in body,
+          f"CompleteMultipartUpload: {st} {body[:300]!r}")
+    mpu_wall = time.perf_counter() - t1
+    alive()
+    info0 = daemon_info(repo, env, daemons[0])
+    check_node0_hashing(info0, put_bytes)
+    log(f"[daemon] on {card}: PUT {n_obj} objects of {blk} B through node 0, "
+        f"16 in flight: p50 {pctl(put_lat, 50) * 1e3:.1f} ms, p99 "
+        f"{pctl(put_lat, 99) * 1e3:.1f} ms, {small / put_wall / 2**20:.2f} "
+        f"MiB/s; multipart {n_parts} x {part} B parts, 4 in flight, out of "
+        f"order: {n_parts * part / mpu_wall / 2**20:.2f} MiB/s; node 0 "
+        f"hashed all {put_bytes} B on the device "
+        f"(block hashes by side {json.dumps(info0['feeder']['routes']['hash'])}"
+        f"); 503 retries {json.dumps(s3[0].retried)}")
+    out.update(put_p50_ms=pctl(put_lat, 50) * 1e3,
+               put_p99_ms=pctl(put_lat, 99) * 1e3,
+               put_mibs=small / put_wall / 2**20,
+               multipart_mibs=n_parts * part / mpu_wall / 2**20,
+               put_bytes=put_bytes)
+
+    # 4. GET every object, half through node 0 and half through node 1
+    # (the multipart object through node 1), and a ranged GET across the
+    # multipart object's first block boundary
+    keys = sorted(sizes)
+    via = {k: (1 if k == big_key else j % 2) for j, k in enumerate(keys)}
+
+    def get_one(key, node=None):
+        ni = via[key] if node is None else node
+        t = time.perf_counter()
+        st, _h, body = s3[ni].request("GET", f"/{DAEMON_BUCKET}/{key}")
+        dt = time.perf_counter() - t
+        check(st == 200 and hashlib.sha256(body).hexdigest() == sha[key],
+              f"GetObject {key} through node {ni}: {st} "
+              f"{body[:300] if st != 200 else 'sha256 differs'}")
+        return ni, len(body), dt
+
+    t2 = time.perf_counter()
+    with ThreadPoolExecutor(16) as ex:
+        got = list(ex.map(get_one, keys))
+    get_wall = time.perf_counter() - t2
+    alive()
+    by_node = {ni: sum(n for x, n, _ in got if x == ni) for ni in (0, 1)}
+    get_lat = [dt for _x, n, dt in got if n == blk]
+    lo = blk - 100
+    st, h, body = s3[0].request("GET", f"/{DAEMON_BUCKET}/{big_key}",
+                                headers={"range": f"bytes={lo}-{blk + 99}"})
+    whole = b"".join(parts)
+    check(st == 206 and body == whole[lo:blk + 100]
+          and h.get("content-range") == f"bytes {lo}-{blk + 99}/{len(whole)}",
+          f"ranged GET across a block boundary: {st} {h.get('content-range')}")
+    log(f"[daemon] on {card}: GET {len(keys)} objects ({put_bytes} B) "
+        f"bit-exact (sha256), 16 in flight: p50 {pctl(get_lat, 50) * 1e3:.1f} "
+        f"ms per {blk} B object, {put_bytes / get_wall / 2**20:.2f} MiB/s in "
+        f"all, node 0 served {by_node[0]} B, node 1 {by_node[1]} B; ranged "
+        f"GET bytes={lo}-{blk + 99} across a block boundary: 206, exact; "
+        f"503 retries node 0 {json.dumps(s3[0].retried)}, node 1 "
+        f"{json.dumps(s3[1].retried)}")
+    out.update(get_p50_ms=pctl(get_lat, 50) * 1e3,
+               get_mibs=put_bytes / get_wall / 2**20, get_bytes_by_node=by_node)
+
+    # 5. every other front door: K2V, admin REST, /metrics, the website
+    k2v = SigV4Client(daemons[0].ports["k2v"], key_id, secret)
+    val = rng.bytes(64)
+    st, _h, body = k2v.request("PUT", f"/{DAEMON_BUCKET}/pk/sk", body=val)
+    check(st in (200, 204), f"K2V InsertItem: {st} {body[:200]!r}")
+    st, _h, body = k2v.request("GET", f"/{DAEMON_BUCKET}/pk/sk",
+                               headers={"accept": "application/octet-stream"})
+    check(st == 200 and body == val, f"K2V ReadItem: {st}")
+    st, _h, body = http_call(daemons[0].ports["admin"], "GET", "/v1/status",
+                             headers={"authorization":
+                                      f"Bearer {DAEMON_TOKEN}"})
+    status = json.loads(body)
+    check(st == 200 and len(status.get("roles", {})) == 3,
+          f"admin /v1/status: {st} {body[:300]!r}")
+    st, _h, metrics = http_call(daemons[0].ports["admin"], "GET", "/metrics")
+    families = {line.split()[2] for line in metrics.decode().splitlines()
+                if line.startswith("# TYPE ")}
+    check(st == 200 and "codec_bytes_total" in families,
+          f"/metrics: {st}, no codec_bytes_total family")
+    page = b"<html><body>chip smoke</body></html>"
+    st, _h, _b = s3[0].request("PUT", f"/{DAEMON_SITE}/index.html", body=page,
+                               headers={"content-type": "text/html"})
+    check(st == 200, f"PutObject index.html: {st}")
+    st, _h, body = http_call(daemons[1].ports["web"], "GET", "/", headers={
+        "host": f"{DAEMON_SITE}{WEB_ROOT}"})
+    check(st == 200 and body == page, f"website GET: {st} {body[:200]!r}")
+    log(f"[daemon] K2V insert/read, admin /v1/status (3 roles), /metrics "
+        f"({len(families)} families) and the website's index.html (through "
+        f"node 1) all served")
+
+    # 6. every block file on every node hashes to its own name
+    nblocks = n_obj + n_parts * (part // blk)
+    for d in daemons:
+        files = block_files(d.data_dir)
+        bad = [n for n, h in files["blocks"].items() if n != h]
+        check(not bad and len(files["blocks"]) == nblocks,
+              f"node {d.i}: {len(files['blocks'])} block files, {len(bad)} "
+              f"not named by their BLAKE2s; expected {nblocks}")
+    log(f"[daemon] {nblocks} block files on each node, each named by its "
+        f"hashlib BLAKE2s")
+
+    # 7. a byte flipped in one block file on node 2; a scrub on every node
+    # through the CLI, concurrently; node 2 finds it, quarantines it and
+    # resyncs it from a peer
+    victim_key = f"obj/{int(rng.integers(0, n_obj)):05d}"
+    victim = hashlib.blake2s(objs[victim_key], digest_size=32).hexdigest()
+    vpath = next(Path(dp) / f for dp, _d, fs in os.walk(daemons[2].data_dir)
+                 for f in fs if f == victim)
+    flip_byte(str(vpath), int(rng.integers(0, blk)))
+    before = [daemon_info(repo, env, d) for d in daemons]
+    marks = [len(d.log_text()) for d in daemons]
+    scrub_bytes = {d.i: sum(f.stat().st_size for f in d.data_dir.rglob("*")
+                            if f.is_file()) for d in daemons}
+    t3 = time.perf_counter()
+    each("repair", "scrub", "--cmd", "start")
+    scrub_s, found = {}, {}
+    pattern = re.compile(r"scrub complete, (\d+) corruptions found")
+    while len(scrub_s) < len(daemons):
+        alive()
+        for d in daemons:
+            if d.i in scrub_s:
+                continue
+            m = pattern.search(d.log_text()[marks[d.i]:])
+            if m:
+                scrub_s[d.i] = time.perf_counter() - t3
+                found[d.i] = int(m.group(1))
+        check(time.perf_counter() - t3 < 600, "daemon: scrubs did not "
+              "finish within 600 s")
+        time.sleep(0.1)
+    check(found == {0: 0, 1: 0, 2: 1}, f"scrub corruptions by node {found}, "
+          "expected exactly the one planted on node 2")
+    check(Path(str(vpath) + ".corrupted").exists(),
+          "node 2: the corrupt block was not quarantined")
+    wait_for(lambda: vpath.exists() and hashlib_digest(
+        vpath.read_bytes()).hex() == victim, "node 2's resync of the "
+        "quarantined block from a peer", timeout=120)
+    get_one(victim_key, node=2)
+    after = [daemon_info(repo, env, d) for d in daemons]
+    scrubs = []
+    for d, b, a in zip(daemons, before, after):
+        k4 = a["launches"]["fused_scrub"] - b["launches"]["fused_scrub"]
+        r0 = b["feeder"]["routes"].get("scrub", {})
+        by_side = {side: v["dispatches"] - r0.get(side, {}).get(
+            "dispatches", 0) for side, v in
+            a["feeder"]["routes"].get("scrub", {}).items()}
+        disp = sum(by_side.values())
+        check(disp > 0 and k4 >= disp, f"node {d.i}: {k4} fused scrub "
+              f"launches for {disp} scrub dispatches")
+        scrubs.append({"node": d.i, "s": scrub_s[d.i],
+                       "bytes": scrub_bytes[d.i], "k4": k4,
+                       "dispatches": disp, "dispatches_by_side": by_side,
+                       "corruptions": found[d.i],
+                       "mibs": scrub_bytes[d.i] / scrub_s[d.i] / 2**20})
+        # a hybrid node's gate picks the side of each scrub dispatch; its
+        # pool prefetch runs K4 on the card either way
+        log(f"[daemon] on {card}: scrub node {d.i} ({d.backend}): "
+            f"{scrub_bytes[d.i]} B in {scrub_s[d.i]:.2f} s = "
+            f"{scrubs[-1]['mibs']:.2f} MiB/s (three nodes at once), "
+            f"{found[d.i]} corruptions, {disp} scrub dispatches (by side "
+            f"{json.dumps(by_side)}), {k4} fused scrub launches")
+    log("[daemon] node 2: the planted corruption quarantined (.corrupted), "
+        "resynced from a peer bit-exact, and its object read back through "
+        "node 2")
+    out["scrub"] = scrubs
+
+    # 8. the card did the work, in each daemon's own words
+    ctx_note = check_daemon_contexts(apps0, compute_apps(),
+                                     [d.proc.pid for d in daemons])
+    used = gpu_memory_used_mib() - used0
+    log(f"[daemon] on {card}: {ctx_note}; the card's memory.used rose "
+        f"{used} MiB with the three daemons up")
+    out.update(device_mib_three_daemons=used)
+    per_node = []
+    for d, inf in zip(daemons, after):
+        la = inf["launches"]
+        check(la["blake2s"] > 0 and la["fused_scrub"] > 0,
+              f"daemon {d.i}: launches {json.dumps(la)}")
+        check_gf_bodies(f"daemon_n{d.i}", la["gf_apply_by"])
+        tr = inf.get("transport") or {}
+        mem = inf.get("cuda_memory") or {}
+        pinned = tr.get("pinned_bytes", 0) + mem.get("pinned_out_bytes", 0)
+        rec = {"node": d.i, "backend": d.backend, "pid": d.proc.pid,
+               "tpu_frac": inf["tpu_frac"], "bytes": inf["bytes"],
+               "launches": la, "pinned_bytes": pinned, "cuda_memory": mem}
+        per_node.append(rec)
+        log(f"[daemon] on {card}: node {d.i} ({d.backend}, pid "
+            f"{d.proc.pid}): tpu_frac {inf['tpu_frac']}, bytes by side "
+            f"{json.dumps(inf['bytes'])}, launches {json.dumps(la)}; device "
+            f"allocator {json.dumps(mem)}, pinned host staging {pinned} B")
+    out["nodes"] = per_node
+
+    # 9. SIGTERM node 2: a clean exit inside the deadline; every object
+    # still reads back through node 0; node 2 restarts and serves a GET
+    rc, stop_s = daemons[2].stop(DAEMON_STOP_S)
+    check(rc == 0, f"daemon 2 exited {rc} on SIGTERM; its log ends:\n"
+          f"{daemons[2].tail()}")
+    t4 = time.perf_counter()
+    with ThreadPoolExecutor(16) as ex:
+        list(ex.map(lambda k: get_one(k, node=0), keys))
+    down_s = time.perf_counter() - t4
+    daemons[2].start(repo, env)
+    wait_for(lambda: lists(s3[2]), "node 2's first S3 200 after its "
+             "restart", timeout=180)
+    rejoin_s = time.perf_counter() - daemons[2].t_spawn
+    for k in keys[:4]:
+        get_one(k, node=2)
+    restart_info = daemon_info(repo, env, daemons[2])
+    log(f"[daemon] node 2 SIGTERM: exit code 0 in {stop_s:.2f} s (limit "
+        f"{DAEMON_STOP_S} s); {len(keys)} objects read back through node 0 "
+        f"with node 2 down in {down_s:.2f} s; node 2 restarted, first S3 200 "
+        f"{rejoin_s:.2f} s after spawn, served 4 GETs bit-exact")
+    out.update(stop_s=stop_s, down_get_s=down_s, rejoin_s=rejoin_s,
+               retried_503={d.i: s3[d.i].retried for d in daemons})
+
+    # 10. every daemon stops cleanly
+    for d in daemons:
+        rc, s = d.stop(DAEMON_STOP_S)
+        check(rc == 0, f"daemon {d.i} exited {rc} on SIGTERM; its log "
+              f"ends:\n{d.tail()}")
+    by_path = {f"daemon_n{r['node']}": dict(r["launches"]) for r in per_node}
+    by_path["daemon_n2_restart"] = dict(restart_info["launches"])
+    for path, counts in by_path.items():
+        log(f"[daemon] launches on the {path} path: {json.dumps(counts)}")
+    launches = {name: sum(c.get(name, 0) for c in by_path.values())
+                for name in KERNELS}
+    out.update(launches=launches, launches_by_path=by_path,
+               phase_s=time.perf_counter() - t_phase)
+    log(f"[daemon] phase: {out['phase_s']:.1f} s, every daemon stopped with "
+        "exit code 0")
+    return out
+
+
 def phase_tune(ctx) -> dict:
     """T1's path: the GF variant sweep of tools/gf_tune.py on one staged
     group, each cell checked against the numpy oracle and timed."""
@@ -2312,7 +3040,7 @@ def gf_times(ctx, reps: int) -> dict:
 
 
 def phase_times(ctx, main: dict, prod: dict, store: dict, garage: dict,
-                tune: dict) -> list:
+                daemon: dict, tune: dict) -> list:
     torch = ctx["torch"]
     from garage_tpu_torch.ops.cuda_blake2s import blake2s_batch, g_chain_cycles
     from garage_tpu_torch.tools.timing import queued_ms
@@ -2376,12 +3104,13 @@ def phase_times(ctx, main: dict, prod: dict, store: dict, garage: dict,
                      "narrow_runtime_ms": gf["narrow"]["runtime_ms"],
                      "full_decode_ms": gf["full_decode"]["ms"],
                      "launches_by_body": gf_bodies_launched(
-                         main, prod, store, garage)},
+                         main, prod, store, garage, daemon)},
         "fused_scrub": {},
     }
     rows, bounds = [], {}
-    by_path = {**main["launches_by_path"], **prod["launches_by_path"],
-               **store["launches_by_path"], **garage["launches_by_path"]}
+    paths = (main, prod, store, garage, daemon)
+    by_path = {p: c for path in paths
+               for p, c in path["launches_by_path"].items()}
     for name in CODEC_KERNELS:
         bms, by = bound_ms(*work[name], dep[name])
         roof, roof_by = bound_ms(*work[name])
@@ -2390,9 +3119,7 @@ def phase_times(ctx, main: dict, prod: dict, store: dict, garage: dict,
         rows.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],
-            "launches": (main["launches"][name] + prod["launches"][name]
-                         + store["launches"][name]
-                         + garage["launches"][name]),
+            "launches": sum(path["launches"][name] for path in paths),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": ctx["max_err"][name], "ms": ms[name],
             "plain_ms": ctx["plain_ms"][name], "bound_ms": bms,
@@ -2451,26 +3178,28 @@ def phase_times(ctx, main: dict, prod: dict, store: dict, garage: dict,
     return rows
 
 
-def gf_bodies_launched(main: dict, prod: dict, store: dict,
-                       garage: dict) -> dict:
-    """GF kernel launches by body over the main, production, store and
-    garage paths."""
+def gf_bodies_launched(*phases: dict) -> dict:
+    """GF kernel launches by body over the paths of the given phases."""
     total = {}
-    for paths in (main["launches_by_path"], prod["launches_by_path"],
-                  store["launches_by_path"], garage["launches_by_path"]):
+    for paths in (ph["launches_by_path"] for ph in phases):
         for counts in paths.values():
             for body, n in counts.get("gf_apply_by", {}).items():
                 total[body] = total.get(body, 0) + n
     return total
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+def nvidia_smi(*args) -> list:
+    """The lines `nvidia-smi *args` prints."""
+    out = subprocess.run(["nvidia-smi", *args], capture_output=True,
+                         text=True, timeout=60)
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
+
+
+def nvidia_smi_line() -> str:
+    return nvidia_smi("--query-gpu=name,power.limit",
+                      "--format=csv,noheader")[0]
 
 
 def main() -> int:
@@ -2481,7 +3210,8 @@ def main() -> int:
     ap.add_argument("--out", help="also write the measurements as JSON here")
     ap.add_argument("--seed", type=int, default=SEED,
                     help="seeds the garage phase's object sizes, data, "
-                         "degraded reads and the two nodes it kills")
+                         "degraded reads and the two nodes it kills, and "
+                         "the daemon phase's objects and planted byte")
     args = ap.parse_args()
 
     repo = Path(__file__).resolve().parent
@@ -2506,6 +3236,7 @@ def main() -> int:
            "reps": 3 if args.quick else 5, "scrub_runs": 3,
            "store_blocks": 128 if args.quick else 512,
            "garage_blocks": 128 if args.quick else 512,
+           "daemon_objects": 32 if args.quick else 256, "repo": repo,
            "heal_timeout_s": 300, "seed": args.seed,
            "tune_reps": 10 if args.quick else 100}
     card = ctx["card"] = nvidia_smi_line()
@@ -2529,9 +3260,13 @@ def main() -> int:
     for name in CODEC_KERNELS:
         check(garage_out["launches"][name] > 0,
               f"kernel {name} was not launched on the garage path")
+    daemon_out = phase_daemon(ctx)
+    for name in CODEC_KERNELS:
+        check(daemon_out["launches"][name] > 0,
+              f"kernel {name} was not launched on the daemon path")
     tune_out = phase_tune(ctx)
     rows = phase_times(ctx, main_out, prod_out, store_out, garage_out,
-                       tune_out)
+                       daemon_out, tune_out)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -2539,7 +3274,7 @@ def main() -> int:
             "card": card, "kernels": rows, "build_s": ctx["build_s"],
             "main": {k: v for k, v in main_out.items()},
             "production": prod_out, "store": store_out,
-            "garage": garage_out, "tune": tune_out,
+            "garage": garage_out, "daemon": daemon_out, "tune": tune_out,
             "summary": ctx["summary"], "quick": args.quick}, indent=1,
             default=float))
     print(json.dumps({"kernels": rows}))

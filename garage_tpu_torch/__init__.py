@@ -15,14 +15,26 @@ plane and node object: the CRDT table engine (``table/``: schema, data,
 Merkle trees, anti-entropy sync, tombstone GC, insert queue), the data
 model (``model/``: buckets, keys, S3 objects, versions, block refs,
 multipart uploads, lifecycle, K2V, the parity index and the distributed
-parity repair) and ``model.Garage``, which wires one node, plus the
-API front door's admission gate (``api/admission.py``).  The HTTP APIs
-and the daemon are not ported yet.
+parity repair) and ``model.Garage``, which wires one node; and the
+daemon: the HTTP front doors (``api/``: SigV4, the S3 API, K2V, the
+admin REST API and ``/metrics``, the admission gate), the website
+server (``web/``), the admin RPC handler (``admin/``), ``server.py``
+and the CLI (``python -m garage_tpu_torch -c garage.toml server``).
 
-Entry points run on the GPU: ``Garage(config)`` and
-``make_codec("cuda" | "hybrid", ...)`` build the codec on the card and
-raise without one.  ``device="cpu"`` is the only way onto the CPU,
-where each kernel's plain PyTorch version runs; it exists for the tests.
+Entry points run on the GPU: ``Garage(config)``, ``Server(config)``,
+the ``server`` command and ``make_codec("cuda" | "hybrid", ...)`` build
+the codec on the card and raise without one.  ``device="cpu"`` is the
+only way onto the CPU, where each kernel's plain PyTorch version runs;
+it exists for the tests.  A config with ``codec.backend = "cpu"`` asks
+for the native C++ floor and builds no device codec.
 """
 
 __version__ = "0.9.5"
+
+# what this build ships, surfaced by `--version` and node stats.  Only
+# ported features: no LMDB-equivalent log db (open_db("native") raises)
+# and no Consul/Kubernetes discovery (System raises for both)
+FEATURES = [
+    "k2v", "sqlite", "metrics", "telemetry-otlp",
+    "codec-cpu", "codec-cuda", "codec-hybrid", "repair-tree",
+]

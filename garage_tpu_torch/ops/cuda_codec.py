@@ -77,6 +77,21 @@ def reset_launches() -> None:
         fused_launches = 0
 
 
+def launch_counts() -> dict:
+    """This process's kernel launches so far: the hash kernel
+    (``blake2s``), the GF kernel (``gf_apply``, and by body), and the
+    fused scrub dispatch (``fused_scrub``).  Process-wide: every codec of
+    the process adds to the same counts."""
+    from . import cuda_blake2s, cuda_gf
+
+    with _count_lock:
+        fused = fused_launches
+    with cuda_gf._count_lock:
+        gf, gf_by = cuda_gf.launches, dict(cuda_gf.launches_by)
+    return {"blake2s": cuda_blake2s.launches, "gf_apply": gf,
+            "gf_apply_by": gf_by, "fused_scrub": fused}
+
+
 def scrub_composition(data, lengths, expected, consts, k, hash_fn, gf_fn):
     """The fused scrub's composition: hash every lane, compare with the
     expected digests, count mismatches, and apply the GF(2^8) constants
@@ -167,6 +182,25 @@ class CudaCodec(BlockCodec):
     @property
     def _on_gpu(self) -> bool:
         return self.device.type == "cuda"
+
+    def device_info(self) -> dict:
+        """The device side of `info()`: where the kernels run, this
+        process's launch counts, and on a GPU the caching allocator's
+        bytes and the page-locked D2H buffer's size."""
+        d = {"device": str(self.device), "launches": launch_counts()}
+        if self._on_gpu:
+            out = self._pinned_out
+            d["cuda_memory"] = {
+                "allocated": torch.cuda.memory_allocated(self.device),
+                "reserved": torch.cuda.memory_reserved(self.device),
+                "pinned_out_bytes": out.numel() if out is not None else 0,
+            }
+        return d
+
+    def info(self) -> dict:
+        d = super().info()
+        d.update(self.device_info())
+        return d
 
     def ragged_side(self) -> str:
         """Feeder attribution: a bare device codec runs every ragged

@@ -158,6 +158,9 @@ class CodecFeeder:
         self.dispatches = 0
         self.dispatched_blocks = 0
         self.dispatch_reasons: dict = {}
+        # kind → side → dispatches / bytes: tells block hashing from the
+        # Merkle trie's metadata hashing (mhash), which is CPU-side
+        self.routes: dict = {}
         self.max_depth_seen = 0
         self.expired = 0  # submissions shed: deadline passed pre-dispatch
         if metrics is not None:
@@ -583,6 +586,7 @@ class CodecFeeder:
                 if tr is not None and tr.alive and tr.supports(kind):
                     try:
                         tr.submit_items(kind, items)
+                        self._count_route(kind, "tpu", items)
                         self.obs.timeline.event(
                             f"handoff {kind}", "feeder",
                             time.monotonic_ns(), cat="feeder",
@@ -605,12 +609,14 @@ class CodecFeeder:
                         self._scrub_thread.start()
                     self._scrub_q.append((items, side))
                     self._scrub_cond.notify_all()
+                self._count_route(kind, side, items)
                 continue
             t_disp_mono = time.monotonic_ns()
             t_disp_ns = time.time_ns()
             # metadata hashing is CPU-side even when the gate is open —
             # its bytes must not count as device traffic
             kside = "cpu" if kind == "mhash" else side
+            self._count_route(kind, kside, items)
             try:
                 with self.obs.stage("feeder_dispatch", kside):
                     if kind == "hash":
@@ -659,6 +665,12 @@ class CodecFeeder:
                 for it in items[len(results):]:
                     if not it.future.done():
                         it.future.set_exception(err)
+
+    def _count_route(self, kind: str, side: str, items) -> None:
+        with self._cond:
+            r = self.routes.setdefault(kind, {})
+            d, b = r.get(side, (0, 0))
+            r[side] = (d + 1, b + sum(it.nbytes for it in items))
 
     def _scrub_worker(self) -> None:
         register_thread("feeder-scrub")
@@ -746,6 +758,9 @@ class CodecFeeder:
                 "dispatches": self.dispatches,
                 "dispatched_blocks": self.dispatched_blocks,
                 "dispatch_reasons": dict(self.dispatch_reasons),
+                "routes": {kind: {side: {"dispatches": d, "bytes": b}
+                                  for side, (d, b) in r.items()}
+                           for kind, r in self.routes.items()},
                 "slo_ms": self.slo * 1000.0,
                 "max_batch_blocks": self.max_batch_blocks,
                 "closed": self._closed,

@@ -287,6 +287,8 @@ class HybridCodec(BlockCodec):
                 "device_batch_blocks": self.device_batch_blocks,
                 "window": self.window,
             })
+        if self.tpu is not None and hasattr(self.tpu, "device_info"):
+            d.update(self.tpu.device_info())
         if self.transport is not None:
             d["transport"] = self.transport.stats()
         if self.pool is not None:

@@ -986,6 +986,14 @@ class DeviceTransport:
             self._slot_bufs[slot] = buf
         return buf[:need].reshape(rows, cols)
 
+    def pinned_bytes(self) -> int:
+        """Page-locked host bytes this transport holds: its staging slots
+        and the probe's staging buffer."""
+        held = [t for t in self._slot_tensors if t is not None]
+        if self._probe_tensor is not None:
+            held.append(self._probe_tensor)
+        return sum(t.numel() for t in held)
+
     def _device_input(self, slot: int, arr: np.ndarray):
         """What the device codec copies a staged array from: with pinned
         staging, the page-locked slot tensor itself in `arr`'s shape (so
@@ -1546,6 +1554,7 @@ class DeviceTransport:
                 "max_staged_bytes_seen": self.max_staged_bytes_seen,
                 "staging_slots": self.slots,
                 "pinned": self.pinned,
+                "pinned_bytes": self.pinned_bytes(),
                 "on_card": self.on_card,
                 "chunk_bytes": self.chunk_bytes,
                 "budget_bytes": self.budget_bytes,

@@ -10,6 +10,7 @@ is exact equality.  Also checks the port's import rule (no jax, nothing
 of garage_tpu) and that it never falls back to the CPU on its own.
 """
 
+import ast
 import asyncio
 import hashlib
 import json
@@ -267,16 +268,19 @@ def test_sync_failure_records_and_switches_nothing(port):
 
 
 _IMPORT_PROBE = """
-import hashlib, json, sys
+import hashlib, importlib, json, pkgutil, sys
+import garage_tpu_torch
 from garage_tpu_torch.ops import make_codec
 from garage_tpu_torch.ops.feeder import CodecFeeder
 from garage_tpu_torch.utils.data import Hash
-import garage_tpu_torch.ops.link_profiler, garage_tpu_torch.ops.native
-import garage_tpu_torch.testing.synthetic_device
-import garage_tpu_torch.tools.gf_tune, garage_tpu_torch.utils.format_table
-import garage_tpu_torch.ops.device_pool, garage_tpu_torch.ops.transport
-import garage_tpu_torch.utils.metrics
 import asyncio
+# every module of the package: api/, web/, admin/, server, cli ... (not
+# __main__, which runs the CLI)
+names = sorted(m.name for m in pkgutil.walk_packages(
+    garage_tpu_torch.__path__, "garage_tpu_torch.")
+    if m.name != "garage_tpu_torch.__main__")
+for name in names:
+    importlib.import_module(name)
 blocks = [bytes([i]) * (100 + 37 * i) for i in range(6)]
 hashes = [Hash(hashlib.blake2s(b, digest_size=32).digest()) for b in blocks]
 for backend in ("cuda", "hybrid", "cpu"):
@@ -289,7 +293,7 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "garage_tpu"
              or m.startswith("garage_tpu."))
 print(json.dumps({"ok": ok.tolist(), "parity": list(parity.shape),
-                  "bad": bad}))
+                  "bad": bad, "modules": names}))
 """
 
 
@@ -302,6 +306,65 @@ def test_port_imports_neither_jax_nor_reference():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     assert res["ok"] == [True] * 6 and res["parity"] == [2, 2, 285]
+    for name in ("api.s3.api_server", "api.k2v_server", "api.admin_server",
+                 "web.web_server", "admin.handler", "server", "cli",
+                 "ops.cuda_codec", "model.garage"):
+        assert f"garage_tpu_torch.{name}" in res["modules"]
+
+
+def _imports_of(path: Path) -> list:
+    """Every module an `import` or `from` statement of the file names,
+    at any depth (imports inside functions included); relative imports
+    as written (leading dots)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            out.append("." * node.level + (node.module or ""))
+    return out
+
+
+def test_no_port_source_imports_jax_or_the_reference():
+    sources = sorted((REPO / "garage_tpu_torch").rglob("*.py"))
+    assert len(sources) > 100
+    bad = [(str(p.relative_to(REPO)), m) for p in sources
+           for m in _imports_of(p)
+           if m.split(".")[0] in ("jax", "jaxlib", "garage_tpu")]
+    assert bad == []
+
+
+_CLI_PROBE = """
+import atexit, runpy, sys
+atexit.register(lambda: print("TORCH_LOADED", "torch" in sys.modules,
+                              file=sys.stderr))
+sys.argv = ["garage_tpu_torch"] + sys.argv[1:]
+runpy.run_module("garage_tpu_torch", run_name="__main__")
+"""
+
+
+@pytest.mark.parametrize("args", [
+    ["--version"], ["node-id"], ["status"], ["bucket", "list"],
+    ["codec", "info"]], ids=lambda a: " ".join(a))
+def test_cli_admin_commands_import_no_torch(args, tmp_path):
+    """`--version` and the admin commands (which talk RPC to a daemon;
+    here none listens, so those fail to connect) never load torch."""
+    (tmp_path / "meta").mkdir()
+    cfg = tmp_path / "garage.toml"
+    cfg.write_text(f'''
+metadata_dir = "{tmp_path}/meta"
+data_dir = "{tmp_path}/data"
+rpc_bind_addr = "127.0.0.1:1"
+rpc_secret = "cli-probe"
+''')
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", _CLI_PROBE, "-c", str(cfg),
+                          *args], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert "TORCH_LOADED False" in out.stderr, out.stderr[-2000:]
+    if args in (["--version"], ["node-id"]):
+        assert out.returncode == 0, out.stderr[-2000:]
 
 
 def test_native_build_stays_out_of_the_packages():
@@ -319,3 +382,31 @@ def test_native_build_stays_out_of_the_packages():
         assert (lib is None) or (path.exists() and path.parent == native.BUILD_DIR)
     assert sorted(p.name for p in pkg_native.iterdir()) == before == [
         "blake2s_mb.cpp", "gf256.cpp"]
+
+
+def test_codec_info_reports_launches_and_feeder_routes():
+    """`codec info`'s port-only keys: the device side (where the kernels
+    run, this process's launch counts) and the feeder's dispatches and
+    bytes by kind and side, which keep block hashing apart from the
+    Merkle trie's CPU-side metadata hashing."""
+    codec = make_codec("cuda", rs_data=K, rs_parity=M, device="cpu")
+    feeder = CodecFeeder(codec)
+    blocks = _blocks([300, 500, 700], seed=21)
+    hashes = [Hash(_digest(b)) for b in blocks]
+    try:
+        feeder.submit_hash(blocks).result(timeout=60)
+        feeder.submit_mhash([b"node-a", b"node-bb"]).result(timeout=60)
+        ok, _parity = feeder.submit_scrub(blocks, hashes).result(timeout=60)
+    finally:
+        feeder.shutdown()
+    assert ok.all()
+    routes = feeder.stats()["routes"]
+    assert routes["hash"] == {"tpu": {"dispatches": 1, "bytes": 1500}}
+    assert routes["mhash"] == {"cpu": {"dispatches": 1, "bytes": 13}}
+    assert routes["scrub"] == {"tpu": {"dispatches": 1, "bytes": 1500}}
+    info = codec.info()
+    assert info["device"] == "cpu" and "cuda_memory" not in info
+    # the plain versions on the CPU launch no kernel: nothing is counted
+    assert set(info["launches"]) == {"blake2s", "gf_apply", "gf_apply_by",
+                                     "fused_scrub"}
+    assert info["bytes"] == {"cpu": 13, "tpu": 3000}
