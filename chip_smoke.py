@@ -100,12 +100,48 @@ Phases, each fatal on any mismatch or exception:
                   object read through node 0 meanwhile, node 2 restarted
                   serving a GET.  Launch counts come from each daemon's
                   `codec info`.
-  8. tune       — T1's path: tools/gf_tune.py's sweep of the GF kernel's
+  8. chaos      — the drill rig (slice 4), every node a port Garage in
+                  this process with its codec a CudaCodec on the card and
+                  the native metadata engine: (a) the full-node-loss drill
+                  at the reference's acceptance shape (scripts/chaos.py
+                  node_rebuild: 24 storage nodes in 4 zones and a
+                  gateway, EC only RS(2,2) with write-time distributed
+                  parity, the reference's defaults otherwise; direct
+                  links, no FaultyLink): seeded PUT/GET/DELETE traffic,
+                  the node with the most data-block bytes crashed and
+                  dropped from the layout under traffic (a 30 s storm,
+                  not the acceptance run's 8 s, with 16 more GET loops
+                  over 48 objects of their own from the crash to its
+                  end), every survivor's rebuild scheduler walked to
+                  the end, paced, every acked object read back bit-exact,
+                  zero client errors; prints the heal time, GET p50 and
+                  p99 in the storm (the p99 over 200 GETs or more, else
+                  their maximum), the lost node's data blocks and parity
+                  shards that a live node holds again, repair bytes by
+                  mode and each node's K1 / K2 / K4 launches and feeder
+                  bytes by side (PUT hashes and write-time encodes all on
+                  the card).  (b) bench.py's
+                  replay shape: 6 storage nodes in 3 zones, 2 gateways,
+                  replication 3, the WAN matrix through FaultyLinks: a
+                  seeded trace (the same signature on two generations)
+                  replayed through a GatewayPool with one gateway killed
+                  mid-window, zero client errors and every acked object
+                  bit-exact; then a byte flipped on one replica found once
+                  by that node's scrub (K4), quarantined and resynced; a
+                  storage node crashed and revived from its native db,
+                  every acked object read back and an S3 GET served by
+                  the revived node; a K2V insert/read through the port's
+                  k2v_client; promlint over a gateway's /metrics.
+                  --quick runs (a) at the reference's quick shape, 6
+                  storage nodes in 3 zones.  The phase runs in a child
+                  interpreter (this script with --chaos-child), which
+                  returns its measurements and launch counts.
+  9. tune       — T1's path: tools/gf_tune.py's sweep of the GF kernel's
                   loop orders x tiles, each cell checked and timed, with
                   each variant's SASS census and the issue bound it
                   implies, beside the production GF kernel on the same
                   codewords.
-  9. times      — each kernel's time (CUDA events, after a warm-up,
+ 10. times      — each kernel's time (CUDA events, after a warm-up,
                   launches queued behind a sleep kernel: tools/timing.py)
                   beside its bound (the larger of bytes over 3.35 TB/s,
                   the fewest 32-bit integer instructions over the SMs'
@@ -123,7 +159,8 @@ decode / 1024-lane scrub, production's cold / warm / put / decode,
 store's put / get / each scrub pass, garage's write / degraded GET /
 heal / scrub, tune); each daemon process starts with its counts at 0
 and reports them through `codec info` (daemon_n0-n2, and node 2's
-restarted process);
+restarted process); chaos's rebuild / replay / scrub / revive, whose
+launches are also attributed to nodes through their codecs;
 and read just after it; each path must have launched every kernel it
 runs, and the GF kernel only the body each path needs (GF_BODIES).
 The sizes are the reference configuration's defaults: 1 MiB
@@ -143,6 +180,7 @@ import hmac
 import http.client
 import json
 import os
+import random
 import re
 import shutil
 import signal
@@ -1539,21 +1577,25 @@ class NodeTally:
     """What one node's codec did, counted at its seams: each call of its
     CudaCodec's `_gf` (one GF kernel launch on the card; the fused scrub
     calls the kernel itself and is not counted here) by body, with the
-    codewords it carried (its batch dimension); on a hybrid node, the
-    RS encodes and decodes its CPU floor ran; and the feeder's inline
-    encode and decode dispatches into the codec (`rs_encode_ragged`,
-    `rs_reconstruct_ragged`; a hybrid node's transport dispatches reach
-    `_gf` without them).  The kernel wrappers' launch counters are
-    process-wide and six nodes share this process: the tallies attribute
-    launches to nodes, and each path checks that they add up to the
-    counter."""
+    codewords it carried (its batch dimension); each BLAKE2s launch of
+    its hash and verify dispatches (`hash_submit`, a non-empty
+    `batch_verify`: one K1 each) and each fused scrub (`fused_scrub`: one
+    K4, which runs K1 too), with the lanes they carried; on a hybrid
+    node, the RS encodes and decodes its CPU floor ran; and the feeder's
+    inline encode and decode dispatches into the codec
+    (`rs_encode_ragged`, `rs_reconstruct_ragged`; a hybrid node's
+    transport dispatches reach `_gf` without them).  The kernel wrappers'
+    launch counters are process-wide and many nodes share this process:
+    the tallies attribute launches to nodes, and each path checks that
+    they add up to the counter."""
 
     SEAMS = ("gf", "cpu_encode", "cpu_decode", "feeder_encode",
-             "feeder_decode")
+             "feeder_decode", "k1", "k4")
 
     def __init__(self, codec, k: int):
         from garage_tpu_torch.ops.cuda_gf import instantiation
 
+        self.k = k
         self.lock = threading.Lock()
         self.reset()
         dev = getattr(codec, "tpu", codec)
@@ -1582,6 +1624,13 @@ class NodeTally:
         wrap(codec, "rs_reconstruct_ragged", "feeder_decode",
              lambda items: "all",
              lambda items: sum(int(it[0].shape[0]) for it in items))
+        wrap(dev, "hash_submit", "k1", lambda arr, lengths: "all",
+             lambda arr, lengths: int(arr.shape[0]))
+        wrap(dev, "batch_verify", "k1",
+             lambda blocks, hashes: "all" if len(blocks) else "empty",
+             lambda blocks, hashes: len(blocks))
+        wrap(dev, "fused_scrub", "k4", lambda d, *a: "all",
+             lambda d, *a: int(d.shape[0]))
 
     def reset(self) -> None:
         with self.lock:
@@ -1605,6 +1654,17 @@ class NodeTally:
                 out[f"{seam}_calls"] = self.calls[seam].get("all", 0)
                 out[f"{seam}_codewords"] = self.codewords[seam].get("all", 0)
             return out
+
+    def launches(self) -> dict:
+        """This node's launches of each kernel, as counts_now names them:
+        a fused scrub runs the hash kernel and, with parity (k > 0), the
+        GF kernel."""
+        with self.lock:
+            k4 = self.calls["k4"].get("all", 0)
+            return {"blake2s": self.calls["k1"].get("all", 0) + k4,
+                    "gf_apply": sum(self.calls["gf"].values())
+                    + (k4 if self.k else 0),
+                    "fused_scrub": k4}
 
 
 async def garage_nodes(root: Path, blk: int) -> list:
@@ -2488,6 +2548,23 @@ def pctl(xs: list, q: float) -> float:
     return float(np.percentile(np.asarray(xs), q))
 
 
+def tail_ms(xs: list) -> dict:
+    """The median and p99 of sorted latencies in ms, the p99 only where
+    there are CHAOS_MIN_GETS of them; their maximum and count."""
+    return {"n": len(xs), "p50_ms": pctl(xs, 50) * 1e3 if xs else None,
+            "p99_ms": pctl(xs, 99) * 1e3 if len(xs) >= CHAOS_MIN_GETS
+            else None, "max_ms": xs[-1] * 1e3 if xs else None}
+
+
+def describe_tail(t: dict) -> str:
+    if not t["n"]:
+        return "none"
+    p99 = (f"p99 {t['p99_ms']:.1f} ms" if t["p99_ms"] is not None
+           else "too few for a p99")
+    return (f"p50 {t['p50_ms']:.1f} ms, {p99}, max {t['max_ms']:.1f} ms "
+            f"over {t['n']}")
+
+
 def phase_daemon(ctx) -> dict:
     """Three `python -m garage_tpu_torch server` processes serving S3
     from the card, configured through the port's CLI and driven over
@@ -2896,6 +2973,650 @@ def _daemon(ctx, root: Path, daemons: list) -> dict:
     return out
 
 
+# --- the drill rig on the card: full-node loss, faults, replay (slice 4) -----
+
+# (a) scripts/chaos.py run_node_rebuild at its acceptance shape (24
+# storage nodes in 4 zones plus a gateway; --quick: its quick shape, 6 in
+# 3): EC only, RS(2,2) with write-time distributed parity, so a lost node
+# heals only through codeword decodes; otherwise the reference's defaults
+# (1 MiB blocks, repair_ppr on, FAST_CHAOS_RPC, SimCluster's node
+# config).  Only the backend changes, "cpu" to "cuda", and the metadata
+# engine is the native one
+CHAOS_EC = {"data_replication_mode": "none",
+            "codec": {"rs_data": 2, "rs_parity": 2, "store_parity": True,
+                      "parity_on_write": True, "parity_distribute": True,
+                      "backend": "cuda"}}
+# the storm: the drill's traffic through the loss and the layout change
+# (the acceptance run's --secs is 8, in which the drill's one serial
+# loop lands 5-14 GETs on the card's host), long enough to hold the
+# whole rebuild
+CHAOS_STORM_S = 30.0
+# GET loops beside the drill's, from the crash to the storm's end, over
+# objects of their own (the drill's body sizes)
+CHAOS_READERS = 16
+CHAOS_READER_OBJECTS = 48
+# a GET latency percentile is printed as one where the storm holds this
+# many GETs, and as their maximum where it holds fewer
+CHAOS_MIN_GETS = 200
+CHAOS_CHILD_TIMEOUT_S = 600
+# (b) bench.py's replay phase: 6 storage nodes in 3 zones, 2 gateways,
+# replication 3, FAST_CHAOS_HEALTH, the WAN matrix; SimCluster's node
+# config, whose codec has no RS geometry, with the backend on the card
+CHAOS_REPLAY_CODEC = {"rs_data": 0, "rs_parity": 0, "backend": "cuda"}
+CHAOS_NEEDS = {"chaos_rebuild": ("blake2s", "gf_apply"),
+               "chaos_replay": ("blake2s",),
+               "chaos_scrub": ("fused_scrub",)}
+# RS(2,2) is not among the GF kernel's instantiations: its write-time
+# encodes and any decode reaching the card run the runtime-(k, r) body
+CHAOS_BODIES = {"chaos_rebuild": {"runtime"}, "chaos_replay": set(),
+                "chaos_scrub": set(), "chaos_revive": set()}
+
+
+class ClusterTallies:
+    """A NodeTally on every node of a SimCluster, and on each node a
+    revive brings back (a revived node has a new codec); the tallies of a
+    node index add up over its lives."""
+
+    def __init__(self, cluster, k: int):
+        self.cluster, self.k = cluster, k
+        self.lives: list = []  # (index, garage, tally)
+        self.refresh()
+
+    def refresh(self) -> None:
+        known = {id(g) for _i, g, _t in self.lives}
+        for i, g in enumerate(self.cluster.garages):
+            if id(g) not in known:
+                self.lives.append((i, g, NodeTally(g.block_manager.codec,
+                                                   self.k)))
+
+    def reset(self) -> None:
+        for _i, _g, t in self.lives:
+            t.reset()
+
+    def by_node(self) -> dict:
+        out = {}
+        for i, _g, t in self.lives:
+            snap, lau = t.snapshot(), t.launches()
+            o = out.setdefault(i, {"blake2s": 0, "gf_apply": 0,
+                                   "fused_scrub": 0, "gf_by": {},
+                                   "feeder_encode_calls": 0,
+                                   "feeder_decode_calls": 0})
+            for name, n in lau.items():
+                o[name] += n
+            for body, n in snap["gf_launches"].items():
+                o["gf_by"][body] = o["gf_by"].get(body, 0) + n
+            o["feeder_encode_calls"] += snap["feeder_encode_calls"]
+            o["feeder_decode_calls"] += snap["feeder_decode_calls"]
+        return out
+
+
+def feeder_sides(g) -> dict:
+    """A node's feeder bytes by kind and side since it started."""
+    routes = g.block_manager.feeder.stats()["routes"]
+    return {kind: {side: r["bytes"] for side, r in sides.items()}
+            for kind, sides in routes.items()}
+
+
+def timed_requests(client, log: list) -> None:
+    """Record (start, method, seconds, status) of every request the
+    drill's S3 client makes."""
+    inner = client.req
+
+    async def req(method, path, body=b"", query=()):
+        t0 = time.monotonic()
+        res = await inner(method, path, body, query)
+        log.append((t0, method, time.monotonic() - t0, res[0]))
+        return res
+    client.req = req
+
+
+def phase_chaos(ctx) -> dict:
+    """The drill rig on the card: (a) a full-node loss healed through
+    codeword decodes at the reference's acceptance shape, (b) a seeded
+    trace replayed through a gateway pool over the WAN matrix with a
+    gateway killed, then a corrupted block found by the card's fused
+    scrub, a crash and revive from the native metadata engine, a K2V
+    round trip and the exposition lint.
+
+    It runs in a child interpreter of its own (this script with
+    --chaos-child), as the reference's scripts/chaos.py runs in a process
+    of its own: the drill's nodes share one event loop, FAST_CHAOS_RPC's
+    sub-second timeouts turn a pause of that loop into a client error,
+    and a full collection of the heap the earlier phases leave in this
+    process is such a pause.  The child zeroes and reads the launch
+    counts of its own paths and writes them back with its measurements."""
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_chaos_"))
+    try:
+        out = root / "chaos.json"
+        cmd = [sys.executable, str(ctx["repo"] / "chip_smoke.py"),
+               "--chaos-child", str(out), "--seed", str(ctx["seed"])]
+        if ctx["quick"]:
+            cmd.append("--quick")
+        try:
+            r = subprocess.run(cmd, cwd=str(ctx["repo"]),
+                               timeout=CHAOS_CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"chaos: the child did not finish in "
+                 f"{CHAOS_CHILD_TIMEOUT_S} s")
+        check(r.returncode == 0, f"chaos: the child exited with code "
+              f"{r.returncode}")
+        return json.loads(out.read_text())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def chaos_child(ctx, out_path: Path) -> int:
+    """The chaos phase's child: both drills, the result as JSON."""
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_chaos_"))
+    pauses = GcPauses()
+    try:
+        out = asyncio.run(_chaos(ctx, root, pauses))
+    finally:
+        pauses.close()
+        log(f"[chaos] full collections: {pauses.summary()}")
+        shutil.rmtree(root, ignore_errors=True)
+    out["gc_pauses"] = pauses.by_label()
+    out_path.write_text(json.dumps(out, default=float))
+    return 0
+
+
+class GcPauses:
+    """The seconds of every full collection, under the label of the drill
+    running: the event loop every node of a drill shares waits while the
+    collector walks the heap.  `settle`, called once a drill's cluster is
+    up, collects and freezes what lives then (the interpreter, torch, the
+    nodes, the last drill's leftovers), so the drill's full collections
+    walk only what it makes (without it, (b)'s took 1.5-1.9 s on the
+    card's host: PERF.md run M2)."""
+
+    def __init__(self):
+        import gc
+
+        self.gc, self.label, self.t0 = gc, "start", 0.0
+        self.pauses: list = []  # (label, seconds)
+        gc.callbacks.append(self._timed)
+
+    def _timed(self, phase: str, info: dict) -> None:
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            self.t0 = time.perf_counter()
+        else:
+            self.pauses.append((self.label, time.perf_counter() - self.t0))
+
+    def settle(self, label: str) -> None:
+        self.gc.unfreeze()
+        self.gc.collect()
+        self.gc.freeze()
+        self.label = label
+
+    def close(self) -> None:
+        self.gc.callbacks.remove(self._timed)
+        self.gc.unfreeze()
+
+    def by_label(self) -> dict:
+        out = {}
+        for label, secs in self.pauses:
+            o = out.setdefault(label, {"n": 0, "longest_s": 0.0})
+            o["n"] += 1
+            o["longest_s"] = max(o["longest_s"], secs)
+        return out
+
+    def summary(self) -> str:
+        return "; ".join(f"{label}: {o['n']}, longest "
+                         f"{o['longest_s'] * 1e3:.0f} ms"
+                         for label, o in self.by_label().items()) or "none"
+
+
+async def _chaos(ctx, root: Path, pauses: GcPauses) -> dict:
+    torch = ctx["torch"]
+    from garage_tpu_torch.ops import cuda_blake2s, cuda_codec, cuda_gf
+    from garage_tpu_torch.tools import gf_tune
+
+    mods = (cuda_blake2s, cuda_gf, cuda_codec, gf_tune)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    out, by_path = {}, {}
+
+    def path_counter(tallies_of):
+        """start/end of a path: the kernel counters zeroed, then read and
+        held against the nodes' tallies."""
+        def start():
+            reset_counts(torch, mods)
+            tallies_of().reset()
+
+        def end(path: str) -> dict:
+            torch.cuda.synchronize()
+            counts = counts_now(mods)
+            per = tallies_of().by_node()
+            for name in CODEC_KERNELS:
+                tallied = sum(o[name] for o in per.values())
+                check(tallied == counts[name], f"the {path} path: "
+                      f"{counts[name]} {name} launches, {tallied} through "
+                      "the nodes' codecs")
+            for name in CHAOS_NEEDS.get(path, ()):
+                check(counts[name] > 0,
+                      f"kernel {name} was not launched on the {path} path")
+            ran = {b for b, n in counts["gf_apply_by"].items() if n}
+            check(ran <= CHAOS_BODIES[path], f"the {path} path ran GF "
+                  f"bodies {sorted(ran)}, not within "
+                  f"{sorted(CHAOS_BODIES[path])}")
+            counts["by_node"] = {i: o for i, o in per.items()
+                                 if o["blake2s"] or o["gf_apply"]}
+            by_path[path] = counts
+            log(f"[chaos] launches on the {path} path: "
+                f"{json.dumps({n: counts[n] for n in KERNELS})}, GF by body "
+                f"{json.dumps(counts['gf_apply_by'])}; by node "
+                f"{json.dumps(counts['by_node'])}")
+            return counts
+        return start, end
+
+    out["rebuild"] = await _chaos_rebuild(ctx, root / "rebuild",
+                                          path_counter, pauses)
+    out["replay"] = await _chaos_replay(ctx, root / "replay", path_counter,
+                                        pauses)
+    launches = {name: sum(c[name] for c in by_path.values())
+                for name in KERNELS}
+    out.update(launches=launches, launches_by_path=by_path,
+               phase_s=time.perf_counter() - t_phase)
+    log(f"[chaos] phase: {out['phase_s']:.1f} s")
+    return out
+
+
+async def _chaos_rebuild(ctx, root: Path, path_counter, pauses) -> dict:
+    import aiohttp
+
+    from garage_tpu_torch.ops.cuda_codec import CudaCodec
+    from garage_tpu_torch.testing.sim_cluster import (
+        SimCluster, TrafficDriver, node_rebuild_drill)
+    from garage_tpu_torch.utils.data import Hash
+
+    n, z = ctx["chaos_nodes"], ctx["chaos_zones"]
+    t = time.perf_counter()
+    cluster = SimCluster(root, n_storage=n, n_zones=z, db="native",
+                         extra_cfg=CHAOS_EC)
+    # no FaultyLinks: the drill injects no link fault, and their relays
+    # would put every RPC's bytes through the nodes' one event loop
+    # twice more
+    await cluster.start(faults=False)
+    try:
+        build_s = time.perf_counter() - t
+        pauses.settle("(a)")
+        for i, g in enumerate(cluster.garages):
+            codec = g.block_manager.codec
+            check(isinstance(codec, CudaCodec)
+                  and str(codec.device).startswith("cuda"),
+                  f"chaos node {i}: codec {type(codec).__name__} on "
+                  f"{getattr(codec, 'device', None)}, not the card")
+            check(g.db.engine == "native", f"chaos node {i}: db engine "
+                  f"{g.db.engine}, not native")
+        inj = cluster.injector
+        log(f"[chaos] (a) on {ctx['card']}: {n} storage nodes in {z} "
+            f"zones + 1 gateway "
+            f"(SimCluster, direct links), EC only RS(2,2) "
+            f"store_parity + parity_on_write + parity_distribute, "
+            f"repair_ppr on, db native, every codec CudaCodec on the card: "
+            f"up in {build_s:.2f} s")
+        tallies = ClusterTallies(cluster, 2)
+        start, end = path_counter(lambda: tallies)
+        storage = set(cluster.storage_indices())
+        samples = []  # (t, layout version on a survivor, blocks healed)
+        storm_end = [None]  # monotonic end of the storm, once it began
+
+        async def monitor():
+            while True:
+                live = [g for i, g in enumerate(cluster.garages)
+                        if i in storage and i not in inj.dead]
+                samples.append((time.monotonic(),
+                                max(g.system.layout.version for g in live),
+                                sum(g.rebuild_scheduler.blocks_healed
+                                    for g in live)))
+                if storm_end[0] is None and samples[-1][1] > v0:
+                    storm_end[0] = samples[-1][0] + CHAOS_STORM_S
+                await asyncio.sleep(0.1)
+
+        reqs, solve = [], []
+        inner_solve = cluster.precompute_layout_change
+
+        async def timed_solve(mutate):
+            t0 = time.perf_counter()
+            enc = await inner_solve(mutate)
+            solve.append(time.perf_counter() - t0)
+            return enc
+        cluster.precompute_layout_change = timed_solve
+        lost, crashed = {}, asyncio.Event()
+        inner_crash = inj.crash
+
+        async def crash(i):
+            # the victim's blocks by kind, read before its metadata closes
+            mgr = cluster.garages[i].block_manager
+            for h in inj.list_blocks(i):
+                kind = "parity" if mgr.is_parity_block(h) else "data"
+                lost.setdefault(kind, []).append(bytes(h))
+            await inner_crash(i)
+            crashed.set()
+        inj.crash = crash
+        reader_errors, objects = [], {}
+
+        async def reader(rng):
+            """GETs of the readers' own objects from the crash to the
+            storm's end, each checked bit-exact.  The drill's objects are
+            left to its own traffic: a GET of a lost block has it
+            resynced, which would take the rebuild's work."""
+            await crashed.wait()
+            names = sorted(objects)
+            while storm_end[0] is None or time.monotonic() < storm_end[0]:
+                name = rng.choice(names)
+                try:
+                    code, got, _h = await rd.s3.req(
+                        "GET", f"/{rd.bucket}/{name}")
+                except Exception as e:  # noqa: BLE001 — a client error
+                    reader_errors.append(f"GET {name}: {e!r}")
+                    continue
+                if code != 200 or got != objects[name]:
+                    reader_errors.append(f"GET {name}: HTTP {code}")
+
+        async with aiohttp.ClientSession() as session:
+            traffic = TrafficDriver(cluster, session,
+                                    bucket="drill-node-rebuild")
+            # the readers' objects: the drill's traffic steps (PUT, GET,
+            # now and then a DELETE) in a bucket of their own, from 8
+            # drivers at once (one driver's steps must not overlap)
+            seeders = [TrafficDriver(cluster, session, bucket="drill-readers",
+                                     seed=SEED + j) for j in range(8)]
+            rd = seeders[0]
+            await traffic.make_bucket()
+            await rd.make_bucket()
+            timed_requests(traffic.s3, reqs)
+            timed_requests(rd.s3, reqs)
+            v0 = cluster.garages[1].system.layout.version
+            start()
+            t = time.perf_counter()
+
+            async def seed(j: int, d) -> None:
+                for _ in range(CHAOS_READER_OBJECTS // len(seeders)):
+                    await d.step(f"r{j}")
+            await asyncio.gather(*(seed(j, d) for j, d in enumerate(seeders)))
+            for d in seeders:
+                check(d.stats.errors == 0, f"chaos (a): the readers' "
+                      f"objects: {d.stats.error_notes[:4]}")
+                objects.update(d.acked)
+            mon = asyncio.ensure_future(monitor())
+            readers = [asyncio.ensure_future(reader(random.Random(SEED + j)))
+                       for j in range(CHAOS_READERS)]
+            try:
+                st = await node_rebuild_drill(
+                    cluster, traffic, CHAOS_STORM_S,
+                    seed_objects=max(24, 2 * n))
+            finally:
+                storm_end[0] = storm_end[0] or 0.0
+                mon.cancel()
+                await asyncio.gather(*readers, return_exceptions=True)
+            drill_s = time.perf_counter() - t
+            counts = end("chaos_rebuild")
+        t_lay = next((ts for ts, v, _h in samples if v > v0), None)
+        check(t_lay is not None, "chaos (a): the survivors never saw the "
+              "layout without the lost node")
+        check(not reader_errors, f"chaos (a): {len(reader_errors)} storm "
+              f"GETs failed: {reader_errors[:4]}")
+        # the heal time: the layout change to the last block healed
+        healed = st.get("blocks_healed", 0)
+        t_heal = next((ts for ts, _v, h in samples if h >= healed),
+                      samples[-1][0]) if healed else t_lay
+        storm = [(m, s, code) for t0, m, s, code in reqs
+                 if t_lay <= t0 <= t_lay + CHAOS_STORM_S]
+        gets = sorted(s for m, s, _c in storm if m == "GET")
+        puts = sorted(s for m, s, _c in storm if m == "PUT")
+        # the lost node's blocks that a live node holds again
+        live = [g for i, g in enumerate(cluster.garages) if i not in inj.dead]
+        again = {kind: sum(1 for h in hs if any(
+            g.block_manager.is_block_present(Hash(h)) for g in live))
+            for kind, hs in lost.items()}
+        res = {"build_s": build_s, "drill_s": drill_s,
+               "heal_s": t_heal - t_lay, "layout_solve_s": solve[0],
+               "storm_get": tail_ms(gets), "storm_put": tail_ms(puts),
+               "lost_blocks": {k: len(v) for k, v in lost.items()},
+               "lost_blocks_held_again": again,
+               **{k: st.get(k) for k in (
+                   "victim", "lost_bytes", "rebuild_complete",
+                   "blocks_healed", "paced_sleeps", "rearms",
+                   "verify_mismatches", "errors", "puts", "gets", "deletes",
+                   "repair_fetch_bytes", "resync_rebuild_skips", "p99_ms")}}
+        log(f"[chaos] (a) drill: {json.dumps(st, default=str)}")
+        sides = {i: feeder_sides(g) for i, g in enumerate(cluster.garages)}
+        k3 = sum(o["feeder_decode_calls"] for o in counts["by_node"].values())
+        log(f"[chaos] (a) node {st.get('victim')} lost ({st.get('lost_bytes')} "
+            f"B of blocks) and dropped from the layout under traffic: "
+            f"{st.get('blocks_healed')} blocks healed "
+            f"{res['heal_s']:.2f} s after the survivors took the new layout "
+            f"(solved in {solve[0]:.2f} s); drill {drill_s:.1f} s; in the "
+            f"{CHAOS_STORM_S:.0f} s storm ({CHAOS_READERS} GET loops beside "
+            f"the drill's traffic) GET {describe_tail(res['storm_get'])}, "
+            f"PUT {describe_tail(res['storm_put'])}; of the lost node's "
+            f"blocks, held again by a live node: "
+            + ", ".join(f"{kind} {again.get(kind, 0)} of {len(hs)}"
+                        for kind, hs in sorted(lost.items()))
+            + f"; repair_fetch_bytes by mode "
+            f"{json.dumps(st.get('repair_fetch_bytes'))}; decodes that "
+            f"reached the card (K3, feeder decode dispatches): {k3}")
+        for i in sorted(sides):
+            o = counts["by_node"].get(i, {})
+            log(f"[chaos] (a) node {i}{' (gateway)' if i == 0 else ''}"
+                f"{' (lost)' if i == st.get('victim') else ''}: K1 "
+                f"{o.get('blake2s', 0)}, K2/K3 {o.get('gf_apply', 0)} "
+                f"{json.dumps(o.get('gf_by', {}))}, K4 "
+                f"{o.get('fused_scrub', 0)}; feeder bytes by kind and side "
+                f"{json.dumps(sides[i])}")
+        for i, sd in sides.items():
+            for kind in ("hash", "encode"):
+                cpu = sd.get(kind, {}).get("cpu")
+                check(not cpu, f"chaos (a) node {i}: {cpu} B of {kind} on "
+                      "the CPU side")
+        check(sum(sd.get("hash", {}).get("tpu", 0) for sd in sides.values())
+              > 0, "chaos (a): no PUT hash reached the card")
+        check(sum(sd.get("encode", {}).get("tpu", 0)
+                  for sd in sides.values()) > 0,
+              "chaos (a): no write-time encode reached the card")
+        for key, ok in (("rebuild_complete", st.get("rebuild_complete")),
+                        ("blocks_healed > 0", st.get("blocks_healed", 0) > 0),
+                        ("paced_sleeps > 0", st.get("paced_sleeps", 0) > 0),
+                        ("verify_mismatches == 0",
+                         st.get("verify_mismatches") == 0),
+                        ("errors == 0", st.get("errors") == 0)):
+            check(bool(ok), f"chaos (a): {key} failed: "
+                  f"{json.dumps(st, default=str)}")
+        res["k3_decodes"] = k3
+        res["feeder_sides"] = sides
+        return res
+    finally:
+        t = time.perf_counter()
+        await cluster.stop()
+        log(f"[chaos] (a) cluster stopped in {time.perf_counter() - t:.1f} s")
+
+
+async def _chaos_replay(ctx, root: Path, path_counter, pauses) -> dict:
+    import aiohttp
+
+    from garage_tpu_torch.api.k2v_server import K2VApiServer
+    from garage_tpu_torch.api.s3.api_server import S3ApiServer
+    from garage_tpu_torch.k2v_client import K2VClient
+    from garage_tpu_torch.testing.faults import FAST_CHAOS_HEALTH
+    from garage_tpu_torch.testing.gateway_pool import GatewayPool
+    from garage_tpu_torch.testing.replay import (
+        ReplayConfig, Replayer, generate_ops, trace_signature)
+    from garage_tpu_torch.testing.s3_client import S3Client
+    from garage_tpu_torch.testing.sim_cluster import SimCluster
+    from garage_tpu_torch.utils.promlint import lint_exposition
+
+    t = time.perf_counter()
+    cluster = SimCluster(root, n_storage=6, n_zones=3, repl="3",
+                         zone_redundancy="maximum", n_gateways=2,
+                         db="native",
+                         extra_cfg={"health": dict(FAST_CHAOS_HEALTH),
+                                    "codec": dict(CHAOS_REPLAY_CODEC)})
+    await cluster.start()
+    try:
+        cluster.apply_wan()
+        await cluster.tick(rounds=3)
+        inj = cluster.injector
+        build_s = time.perf_counter() - t
+        pauses.settle("(b)")
+        log(f"[chaos] (b) 6 storage nodes in 3 zones + 2 gateways, "
+            f"replication 3, db native, codec cuda, WAN matrix "
+            f"{json.dumps({f'{a}-{b}': r for (a, b), r in inj.wan_matrix.items()})}"
+            f" s RTT: up in {build_s:.2f} s")
+        tallies = ClusterTallies(cluster, 0)
+        start, end = path_counter(lambda: tallies)
+        cfg = ReplayConfig(seed=19, n_keys=64, base_ops_per_s=12.0,
+                           duration_s=12.0, size_preset="small")
+        sig = trace_signature(generate_ops(cfg))
+        check(sig == trace_signature(generate_ops(cfg)),
+              "chaos (b): two generations of one seed differ")
+        res = {"build_s": build_s, "trace_signature": sig}
+        async with aiohttp.ClientSession() as session:
+            pool = GatewayPool(session, cluster.gateway_endpoints(),
+                               cluster.key_id, cluster.secret,
+                               metrics=cluster.garages[0].system.metrics)
+            st, _b, _h = await pool.request("PUT", f"/{cfg.bucket}")
+            check(st == 200, f"chaos (b): bucket create {st}")
+            rp = Replayer(cfg, pool)
+            kill_at = len(rp.ops) // 2
+            killed = [False]
+
+            async def on_op(i: int, _at: float) -> None:
+                if i == kill_at and not killed[0]:
+                    killed[0] = True
+                    await cluster.kill_gateway(1)
+
+            start()
+            t = time.perf_counter()
+            stats = await rp.run(on_op=on_op)
+            replay_s = time.perf_counter() - t
+            bad = await rp.verify_all()
+            end("chaos_replay")
+            summ = stats.summary()
+            log(f"[chaos] (b) replay of {len(rp.ops)} ops (signature {sig}, "
+                f"the same on a second generation) in {replay_s:.1f} s, "
+                f"gateway 1 killed at op {kill_at}: {json.dumps(summ)}; pool "
+                f"{json.dumps(dict(pool.counters))}; {len(rp.acked)} acked "
+                f"keys read back, {bad} mismatches")
+            check(killed[0], "chaos (b): the mid-window kill never fired")
+            check(pool.counters["failovers"] >= 1, "chaos (b): no failover "
+                  f"through the kill: {dict(pool.counters)}")
+            check(stats.errors == 0, f"chaos (b): client errors "
+                  f"{stats.error_notes}")
+            check(bad == 0, f"chaos (b): {bad} acked objects differ")
+            res.update(ops=len(rp.ops), replay_s=replay_s, stats=summ,
+                       pool=dict(pool.counters), acked=len(rp.acked))
+
+            # a flipped byte on one replica of a block an object still
+            # references: one scrub pass of that node (tranquility 0)
+            # finds it once on the card, quarantines it and resync
+            # fetches it back (a block only overwritten versions held
+            # would be left to the GC)
+            vi = cluster.storage_indices()[1]
+            g = cluster.garages[vi]
+            w, mgr = g.scrub_worker, g.block_manager
+            blocks = sorted(bytes(h) for h in inj.list_blocks(vi)
+                            if mgr.rc.get(h).is_needed())
+            check(bool(blocks), f"chaos (b): node {vi} holds no live block")
+            h = blocks[len(blocks) // 2]
+            check(inj.corrupt_block(vi, h), "chaos (b): corrupt_block found "
+                  "no file")
+            w.set_tranquility(0)
+            done0, q0 = w.state.time_last_complete, mgr.quarantined
+            start()
+            t = time.perf_counter()
+            w.send_command("start")
+            deadline = time.monotonic() + 300
+            while w.state.running or w.state.time_last_complete == done0:
+                check(time.monotonic() < deadline, "chaos (b): the scrub "
+                      "pass did not finish in 300 s")
+                await asyncio.sleep(0.05)
+            scrub_s = time.perf_counter() - t
+            sc = end("chaos_scrub")
+            k4 = sc["by_node"].get(vi, {}).get("fused_scrub", 0)
+            check(w.state.corruptions == 1, f"chaos (b): the scrub found "
+                  f"{w.state.corruptions} corruptions, not 1")
+            check(mgr.quarantined - q0 == 1, f"chaos (b): "
+                  f"{mgr.quarantined - q0} copies quarantined")
+            check(k4 == sc["fused_scrub"] and k4 > 0, "chaos (b): the "
+                  f"scrub's K4 launches are not node {vi}'s ({k4})")
+            deadline = time.monotonic() + 120
+            while not mgr.is_block_present(h):
+                check(time.monotonic() < deadline, "chaos (b): the "
+                      "corrupted block was not resynced in 120 s")
+                await asyncio.sleep(0.05)
+            back = (await mgr.read_block(h)).decompressed()
+            check(hashlib_digest(back) == h, "chaos (b): the resynced "
+                  "block does not hash to its name")
+            log(f"[chaos] (b) a byte flipped in block {h.hex()[:12]} on node "
+                f"{vi} ({len(blocks)} blocks): its scrub pass "
+                f"({scrub_s:.2f} s, {k4} K4 launches) found 1 corruption, "
+                "quarantined the copy, resync fetched it back bit-exact")
+
+            # crash and revive a storage node from its native db
+            vj = cluster.storage_indices()[3]
+            start()
+            t = time.perf_counter()
+            await inj.crash(vj)
+            g2 = await inj.revive(vj)
+            revive_s = time.perf_counter() - t
+            tallies.refresh()
+            check(g2.db.engine == "native" and str(
+                g2.block_manager.codec.device).startswith("cuda"),
+                f"chaos (b): revived node {vj}: db {g2.db.engine}, codec on "
+                f"{g2.block_manager.codec.device}")
+            bad2 = await rp.verify_all()
+            check(bad2 == 0, f"chaos (b): {bad2} acked objects differ after "
+                  "the revive")
+            srv = S3ApiServer(g2)
+            await srv.start("127.0.0.1:0")
+            try:
+                key = next(iter(sorted(rp.acked)))
+                s3 = S3Client(session, srv.port, cluster.key_id,
+                              cluster.secret)
+                st, got, _h = await s3.req(
+                    "GET", f"/{cfg.bucket}/{rp._key_name(key)}")
+            finally:
+                await srv.stop()
+            check(st == 200 and got == rp.acked[key][1], f"chaos (b): the "
+                  f"revived node's GET: HTTP {st}")
+            end("chaos_revive")
+            log(f"[chaos] (b) node {vj} crashed (no drains) and revived from "
+                f"its native db in {revive_s:.2f} s; all {len(rp.acked)} "
+                f"acked keys read back through the pool, and the revived "
+                f"node served an S3 GET of {rp._key_name(key)} "
+                f"({len(got)} B) bit-exact")
+
+            # one K2V round trip through the port's client
+            k2v = K2VApiServer(cluster.garages[0])
+            await k2v.start("127.0.0.1:0")
+            try:
+                kc = K2VClient(f"http://127.0.0.1:{k2v.port}", cfg.bucket,
+                               cluster.key_id, cluster.secret)
+                await kc.insert_item("chaos", "k", b"chip-smoke")
+                item = await kc.read_item("chaos", "k")
+            finally:
+                await k2v.stop()
+            check(item is not None and item.value == b"chip-smoke",
+                  f"chaos (b): K2V read back {item and item.values}")
+            errors = lint_exposition(cluster.garages[0].system.metrics.render())
+            check(not errors, f"chaos (b): promlint over gateway 0's "
+                  f"/metrics: {errors[:4]}")
+            log("[chaos] (b) K2V insert/read through k2v_client: exact, token "
+                f"{str(item.token)[:16]}...; promlint over gateway 0's "
+                "/metrics: no error")
+        res.update(scrub_s=scrub_s, scrub_k4=k4, revive_s=revive_s,
+                   block_count_node=len(blocks))
+        return res
+    finally:
+        t = time.perf_counter()
+        await cluster.stop()
+        log(f"[chaos] (b) cluster stopped in {time.perf_counter() - t:.1f} s")
+
+
 def phase_tune(ctx) -> dict:
     """T1's path: the GF variant sweep of tools/gf_tune.py on one staged
     group, each cell checked against the numpy oracle and timed."""
@@ -3040,7 +3761,7 @@ def gf_times(ctx, reps: int) -> dict:
 
 
 def phase_times(ctx, main: dict, prod: dict, store: dict, garage: dict,
-                daemon: dict, tune: dict) -> list:
+                daemon: dict, chaos: dict, tune: dict) -> list:
     torch = ctx["torch"]
     from garage_tpu_torch.ops.cuda_blake2s import blake2s_batch, g_chain_cycles
     from garage_tpu_torch.tools.timing import queued_ms
@@ -3104,11 +3825,11 @@ def phase_times(ctx, main: dict, prod: dict, store: dict, garage: dict,
                      "narrow_runtime_ms": gf["narrow"]["runtime_ms"],
                      "full_decode_ms": gf["full_decode"]["ms"],
                      "launches_by_body": gf_bodies_launched(
-                         main, prod, store, garage, daemon)},
+                         main, prod, store, garage, daemon, chaos)},
         "fused_scrub": {},
     }
     rows, bounds = [], {}
-    paths = (main, prod, store, garage, daemon)
+    paths = (main, prod, store, garage, daemon, chaos)
     by_path = {p: c for path in paths
                for p, c in path["launches_by_path"].items()}
     for name in CODEC_KERNELS:
@@ -3212,6 +3933,7 @@ def main() -> int:
                     help="seeds the garage phase's object sizes, data, "
                          "degraded reads and the two nodes it kills, and "
                          "the daemon phase's objects and planted byte")
+    ap.add_argument("--chaos-child", metavar="FILE", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     repo = Path(__file__).resolve().parent
@@ -3237,9 +3959,13 @@ def main() -> int:
            "store_blocks": 128 if args.quick else 512,
            "garage_blocks": 128 if args.quick else 512,
            "daemon_objects": 32 if args.quick else 256, "repo": repo,
-           "heal_timeout_s": 300, "seed": args.seed,
+           "chaos_nodes": 6 if args.quick else 24,
+           "chaos_zones": 3 if args.quick else 4,
+           "heal_timeout_s": 300, "seed": args.seed, "quick": args.quick,
            "tune_reps": 10 if args.quick else 100}
     card = ctx["card"] = nvidia_smi_line()
+    if args.chaos_child:
+        return chaos_child(ctx, Path(args.chaos_child))
     log(f"[card] {torch.cuda.get_device_name(0)} ({card}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
@@ -3264,9 +3990,13 @@ def main() -> int:
     for name in CODEC_KERNELS:
         check(daemon_out["launches"][name] > 0,
               f"kernel {name} was not launched on the daemon path")
+    chaos_out = phase_chaos(ctx)
+    for name in CODEC_KERNELS:
+        check(chaos_out["launches"][name] > 0,
+              f"kernel {name} was not launched on the chaos path")
     tune_out = phase_tune(ctx)
     rows = phase_times(ctx, main_out, prod_out, store_out, garage_out,
-                       daemon_out, tune_out)
+                       daemon_out, chaos_out, tune_out)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
@@ -3274,7 +4004,8 @@ def main() -> int:
             "card": card, "kernels": rows, "build_s": ctx["build_s"],
             "main": {k: v for k, v in main_out.items()},
             "production": prod_out, "store": store_out,
-            "garage": garage_out, "daemon": daemon_out, "tune": tune_out,
+            "garage": garage_out, "daemon": daemon_out, "chaos": chaos_out,
+            "tune": tune_out,
             "summary": ctx["summary"], "quick": args.quick}, indent=1,
             default=float))
     print(json.dumps({"kernels": rows}))

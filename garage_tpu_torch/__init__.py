@@ -19,11 +19,18 @@ parity repair) and ``model.Garage``, which wires one node; and the
 daemon: the HTTP front doors (``api/``: SigV4, the S3 API, K2V, the
 admin REST API and ``/metrics``, the admission gate), the website
 server (``web/``), the admin RPC handler (``admin/``), ``server.py``
-and the CLI (``python -m garage_tpu_torch -c garage.toml server``).
+and the CLI (``python -m garage_tpu_torch -c garage.toml server``); the
+host layers beside them: the ``native`` log-structured metadata engine
+(``db/native_adapter.py`` over ``native/logdb.cpp``), Consul and
+Kubernetes peer discovery (``rpc/discovery.py``), the K2V client
+(``k2v_client.py``) and the drill rig (``testing/``: fault injection,
+the in-process SimCluster, the gateway-pool client and the trace
+replayer).
 
 Entry points run on the GPU: ``Garage(config)``, ``Server(config)``,
-the ``server`` command and ``make_codec("cuda" | "hybrid", ...)`` build
-the codec on the card and raise without one.  ``device="cpu"`` is the
+``SimCluster``, ``FaultInjector.revive``, the ``server`` command and
+``make_codec("cuda" | "hybrid", ...)`` build the codec on the card and
+raise without one.  ``device="cpu"`` is the
 only way onto the CPU, where each kernel's plain PyTorch version runs;
 it exists for the tests.  A config with ``codec.backend = "cpu"`` asks
 for the native C++ floor and builds no device codec.
@@ -31,10 +38,9 @@ for the native C++ floor and builds no device codec.
 
 __version__ = "0.9.5"
 
-# what this build ships, surfaced by `--version` and node stats.  Only
-# ported features: no LMDB-equivalent log db (open_db("native") raises)
-# and no Consul/Kubernetes discovery (System raises for both)
+# what this build ships, surfaced by `--version` and node stats
 FEATURES = [
-    "k2v", "sqlite", "metrics", "telemetry-otlp",
+    "k2v", "lmdb-equivalent-logdb", "sqlite", "consul-discovery",
+    "kubernetes-discovery", "metrics", "telemetry-otlp",
     "codec-cpu", "codec-cuda", "codec-hybrid", "repair-tree",
 ]

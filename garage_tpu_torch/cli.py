@@ -10,8 +10,7 @@ Usage:  python -m garage_tpu_torch <command> [args]  (-c/--config garage.toml)
 `server` and `offline-repair-counters` build the node's codec on the GPU
 (torch is imported only there).  The admin commands talk RPC and import
 only `net/` and `utils/config`, so they start without torch and never
-touch the card.  `convert-db` with the `native` engine raises: that
-engine is not ported yet.
+touch the card.
 """
 
 from __future__ import annotations

@@ -257,5 +257,9 @@ def open_db(engine: str, path: Optional[str] = None, **kw) -> Db:
         # reference's sled slot); without: RAM-only (tests/ephemeral)
         return Db(MemoryDb(path=path, **kw))
     if engine in ("native", "logdb"):
-        raise DbError(f"db engine {engine!r} is not ported yet")
+        from .native_adapter import NativeDb
+
+        if path is None:
+            raise DbError("native engine requires a path")
+        return Db(NativeDb(path, **kw))
     raise DbError(f"unknown db engine {engine!r}")

@@ -1,20 +1,27 @@
-"""ctypes loaders for the CPU codec's native C++ kernels.
+"""ctypes loaders for the port's native C++ libraries.
 
-Two kernels, sources in ``garage_tpu_torch/native/``:
+Four libraries, sources in ``garage_tpu_torch/native/``:
   - gf256.cpp      → libgf256.so      (AVX2/GFNI GF(2^8) matmul)
   - blake2s_mb.cpp → libblake2smb.so  (multi-buffer BLAKE2s-256;
     16-lane AVX-512 / 8-lane AVX2, runtime-dispatched inside the kernel)
+  - logdb.cpp      → liblogdb.so      (the `native` metadata engine,
+    bound by ``db/native_adapter.py``)
+  - flowcost.cpp   → libflowcost.so   (the layout optimizer's
+    negative-cycle cancellation, bound by ``rpc/graph_algo.py``)
 
-These are the CPU floor of the hybrid codec, not device kernels.  Each
-library is compiled with the host C++ compiler at first use (never at
-import) into ``build/native/`` at the root of the checkout: the file
-name carries a hash of the source, flags and host, the compiler writes a
-temporary file and a finished build is renamed into place, so
-concurrent processes (test workers) never load or clobber a half-written
-library, and nothing is ever written inside a package directory.  A
-failed build is remembered for the life of the process.  Callers fall
-back to numpy (GF) / hashlib (BLAKE2s) when a kernel is unavailable,
-e.g. on a host without a C++ compiler.
+The first two are the CPU floor of the hybrid codec, not device
+kernels.  Each library is compiled with the host C++ compiler at first
+use (never at import) into ``build/native/`` at the root of the
+checkout: the file name carries a hash of the source, flags and host,
+the compiler writes a temporary file and a finished build is renamed
+into place, so concurrent processes (test workers) never load or
+clobber a half-written library, and nothing is ever written inside a
+package directory.  A failed build is remembered for the life of the
+process.  The codec's
+callers fall back to numpy (GF) / hashlib (BLAKE2s) when a kernel is
+unavailable, e.g. on a host without a C++ compiler, and the layout
+optimizer to its Python loop; the metadata engine has no fallback
+(``require_native`` raises).
 """
 
 from __future__ import annotations
@@ -43,11 +50,15 @@ _FLAGS = {
     "gf256": ["-O3", "-march=native", "-fPIC", "-Wall", "-fopenmp",
               "-shared"],
     "blake2s_mb": ["-O3", "-fPIC", "-Wall", "-shared"],
+    "logdb": ["-O3", "-march=native", "-fPIC", "-Wall", "-shared"],
+    "flowcost": ["-O3", "-march=native", "-fPIC", "-Wall", "-shared"],
 }
-_LIB_NAMES = {"gf256": "libgf256", "blake2s_mb": "libblake2smb"}
+_LIB_NAMES = {"gf256": "libgf256", "blake2s_mb": "libblake2smb",
+              "logdb": "liblogdb", "flowcost": "libflowcost"}
 
 _BUILD_LOCK = threading.Lock()
 _libs: Dict[str, Optional[ctypes.CDLL]] = {}
+_errors: Dict[str, str] = {}  # why a library could not be built or loaded
 
 
 def _lib_path(name: str) -> Path:
@@ -84,10 +95,26 @@ def load_native(name: str) -> Optional[ctypes.CDLL]:
             if not out.exists():
                 _build(name, out)
             lib = ctypes.CDLL(str(out))
+        except subprocess.CalledProcessError as e:
+            _errors[name] = (f"{e.cmd[0]} exited {e.returncode}: "
+                             f"{e.stderr.decode(errors='replace')[-400:]}")
         except (OSError, RuntimeError, subprocess.SubprocessError) as e:
-            logger.debug("native %s unavailable: %s", name, e)
+            _errors[name] = str(e)
+        if lib is None:
+            logger.debug("native %s unavailable: %s", name, _errors[name])
         _libs[name] = lib
         return lib
+
+
+def require_native(name: str) -> ctypes.CDLL:
+    """load_native for a caller with no fallback: raises RuntimeError,
+    with the compiler's or loader's reason, when the library cannot be
+    built or loaded here."""
+    lib = load_native(name)
+    if lib is None:
+        raise RuntimeError(f"cannot build or load {_LIB_NAMES[name]} into "
+                           f"{BUILD_DIR}: {_errors.get(name)}")
+    return lib
 
 
 def _u8p(a: np.ndarray):
@@ -245,4 +272,42 @@ def get_native_blake2s_rows() -> Optional[Callable]:
                 lens[pos] = int(lengths[i])
             return _run_multi(lib, ptrs, lens, order)
     _resolved["b2_rows"] = fn
+    return fn
+
+
+# --- the layout optimizer's negative-cycle cancellation ---
+
+
+def get_native_flow_cancel() -> Optional[Callable]:
+    """fn(n, first, dst, cap, flow, cost, rev, max_rounds) -> rounds over
+    int64 CSR arrays (flow updated in place; see native/flowcost.cpp), or
+    None (the Python loop); builds on first call."""
+    if "flow_cancel" in _resolved:
+        return _resolved["flow_cancel"]
+    fn = None
+    lib = load_native("flowcost")
+    if lib is not None:
+        p64 = ctypes.POINTER(ctypes.c_int64)
+        lib.flow_cancel_negative_cycles.argtypes = [
+            ctypes.c_int64, p64, p64, p64, p64, p64, p64, ctypes.c_int64]
+        lib.flow_cancel_negative_cycles.restype = ctypes.c_int64
+
+        def fn(n, first, dst, cap, flow, cost, rev, max_rounds):
+            arrs = [np.ascontiguousarray(a, dtype=np.int64)
+                    for a in (first, dst, cap, cost, rev)]
+            if flow.dtype != np.int64 or not flow.flags["C_CONTIGUOUS"]:
+                raise ValueError("flow must be a C-contiguous int64 array")
+            m = int(arrs[0][-1])
+            if len(arrs[0]) != n + 1 or any(len(a) != m for a in (
+                    arrs[1], arrs[2], arrs[3], arrs[4], flow)):
+                raise ValueError("graph arrays do not match n and the edges")
+            if m and not (0 <= arrs[1].min() and arrs[1].max() < n
+                          and 0 <= arrs[4].min() and arrs[4].max() < m):
+                raise ValueError("edge endpoints out of range")
+            first_, dst_, cap_, cost_, rev_ = (a.ctypes.data_as(p64)
+                                               for a in arrs)
+            return int(lib.flow_cancel_negative_cycles(
+                n, first_, dst_, cap_, flow.ctypes.data_as(p64), cost_, rev_,
+                max_rounds))
+    _resolved["flow_cancel"] = fn
     return fn

@@ -94,7 +94,40 @@ class Graph:
         """Cancel negative-cost cycles in the residual graph until none
         remain (ref graph_algo.rs:269): keeps the flow value, minimizes
         total cost.  Bellman-Ford finds a vertex on a negative cycle; we
-        walk predecessors to extract it."""
+        walk predecessors to extract it.
+
+        Runs in native/flowcost.cpp, which repeats this loop step for step
+        (the same cycles in the same order, so the same flows).  The loop
+        below exists only for a host without a C++ compiler, where
+        ops/native cannot build the library, as the CPU codec keeps its
+        numpy floor.  A one-node loss on a 24-node cluster cancels
+        hundreds of cycles of n Bellman-Ford passes each."""
+        import numpy as np
+
+        from ..ops.native import get_native_flow_cancel
+
+        cancel = get_native_flow_cancel()
+        if cancel is None:
+            return self._optimize_flow_with_cost_py(max_rounds)
+        n = len(self.adj)
+        edges = [e for adj in self.adj for e in adj]
+        first = np.cumsum([0] + [len(adj) for adj in self.adj])
+        dst = np.fromiter((e.dst for e in edges), np.int64, len(edges))
+        rev = first[dst] + np.fromiter((e.rev for e in edges), np.int64,
+                                       len(edges))
+        flow = np.fromiter((e.flow for e in edges), np.int64, len(edges))
+        rounds = cancel(
+            n, first, dst,
+            np.fromiter((e.cap for e in edges), np.int64, len(edges)),
+            flow, np.fromiter((e.cost for e in edges), np.int64, len(edges)),
+            rev, max_rounds)
+        if rounds < 0:
+            raise RuntimeError("negative-cycle walk met a vertex with no "
+                               "predecessor")
+        for e, f in zip(edges, flow.tolist()):
+            e.flow = f
+
+    def _optimize_flow_with_cost_py(self, max_rounds: int = 1000) -> None:
         n = len(self.adj)
         for _ in range(max_rounds):
             cycle = self._find_negative_cycle(n)

@@ -37,6 +37,11 @@ def partition_range(partition: int) -> Tuple[Hash, Optional[Hash]]:
     return first, Hash(bytes([partition + 1]) + b"\x00" * 31)
 
 
+# (index, first hash) of every partition: immutable values, shared
+_ALL_PARTITIONS = tuple((p, partition_range(p)[0])
+                        for p in range(N_PARTITIONS))
+
+
 class Ring:
     """Immutable view: layout version → partition → replica nodes
     (ref ring.rs:64-97)."""
@@ -100,10 +105,12 @@ class Ring:
         return [FixedBytes32(x) for x in nodes[:n]]
 
     def partitions(self) -> List[Tuple[int, Hash]]:
-        """All (partition index, first hash) pairs (ref ring.rs partitions)."""
-        return [
-            (p, partition_range(p)[0]) for p in range(N_PARTITIONS)
-        ]
+        """All (partition index, first hash) pairs (ref ring.rs partitions).
+        A copy of one prebuilt table: after a layout change every table's
+        syncer asks for it once per partition it offloads, so building
+        256 hashes per call cost whole seconds of the event loop on a
+        24-node in-process cluster."""
+        return list(_ALL_PARTITIONS)
 
     def partition_nodes(self, partition: int) -> List[FixedBytes32]:
         return [FixedBytes32(x) for x in self._partitions[partition]]

@@ -130,10 +130,6 @@ class System:
     (ref rpc/system.rs:84-123)."""
 
     def __init__(self, config: Config, replication_mode: Optional[ReplicationMode] = None):
-        if (config.consul_discovery is not None
-                or config.kubernetes_discovery is not None):
-            raise NotImplementedError(
-                "consul/kubernetes discovery is not ported yet")
         self.config = config
         self.replication_mode = replication_mode or parse_replication_mode(
             config.replication_mode

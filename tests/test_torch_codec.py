@@ -368,20 +368,22 @@ rpc_secret = "cli-probe"
 
 
 def test_native_build_stays_out_of_the_packages():
-    """The CPU codec's native kernels build into build/native/ at the
-    root of the checkout: nothing is written inside the package (and the
-    port never runs the reference's in-place make)."""
+    """The port's native libraries (the CPU codec's kernels, the logdb
+    metadata engine and the layout optimizer's cycle canceller) build
+    into build/native/ at the root of the checkout: nothing is written
+    inside the package (and the port never runs the reference's
+    in-place make)."""
     from garage_tpu_torch.ops import native
 
     pkg_native = REPO / "garage_tpu_torch" / "native"
     before = sorted(p.name for p in pkg_native.iterdir())
     assert native.BUILD_DIR == REPO / "build" / "native"
-    for name in ("gf256", "blake2s_mb"):
+    for name in ("gf256", "blake2s_mb", "logdb", "flowcost"):
         lib = native.load_native(name)
         path = native._lib_path(name)
         assert (lib is None) or (path.exists() and path.parent == native.BUILD_DIR)
     assert sorted(p.name for p in pkg_native.iterdir()) == before == [
-        "blake2s_mb.cpp", "gf256.cpp"]
+        "blake2s_mb.cpp", "flowcost.cpp", "gf256.cpp", "logdb.cpp"]
 
 
 def test_codec_info_reports_launches_and_feeder_routes():

@@ -177,14 +177,21 @@ def test_cuda_daemon_without_a_card_exits_and_serves_nothing(tmp_path):
 
 
 def test_version_lists_the_ports_features():
+    # argparse wraps the version line at the terminal's width
     r = subprocess.run([sys.executable, "-m", "garage_tpu_torch", "--version"],
-                       cwd=str(REPO), env=_env(), capture_output=True,
+                       cwd=str(REPO), env={**_env(), "COLUMNS": "500"},
+                       capture_output=True,
                        text=True, timeout=60)
     assert r.returncode == 0
     assert r.stdout.startswith("garage_tpu_torch 0.9.5 [features: ")
     assert "codec-cuda" in r.stdout and "codec-tpu" not in r.stdout
+    import garage_tpu
     from garage_tpu_torch import FEATURES
 
     assert "codec-tpu" not in FEATURES
-    assert "lmdb-equivalent-logdb" not in FEATURES
-    assert not any("discovery" in f for f in FEATURES)
+    # every feature of the reference, the TPU codec's as the CUDA one's
+    assert FEATURES == [f.replace("codec-tpu", "codec-cuda")
+                        for f in garage_tpu.FEATURES]
+    for f in ("lmdb-equivalent-logdb", "consul-discovery",
+              "kubernetes-discovery"):
+        assert f in r.stdout

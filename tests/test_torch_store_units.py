@@ -242,8 +242,22 @@ def test_db_adapters_match_reference(tmp_path, engine):
 
 
 def test_native_db_engine_not_ported(tmp_path):
-    with pytest.raises(p_error.DbError, match="not ported"):
-        p_db.open_db("native", path=str(tmp_path / "db.logdb"))
+    """The `native` engine is ported now (tests/test_torch_logdb.py
+    holds it to the reference's): both names open it, it ends the shared
+    sequence as the other engines do, and it still needs a path."""
+    from garage_tpu_torch.db.native_adapter import NativeDb
+
+    ops = _db_ops()
+    for name in ("native", "logdb"):
+        db = p_db.open_db(name, path=str(tmp_path / f"{name}.logdb"))
+        assert isinstance(db.backend, NativeDb)
+        got = _run_db(db, ops)
+        db.close()
+    db = p_db.open_db("sqlite", path=str(tmp_path / "o.db"))
+    assert _run_db(db, ops) == got
+    db.close()
+    with pytest.raises(p_error.DbError, match="requires a path"):
+        p_db.open_db("native")
 
 
 # --- config -------------------------------------------------------------------
