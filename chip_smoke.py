@@ -46,6 +46,25 @@ Phases, each fatal on any mismatch or exception:
                   bytes and a warm pass that stages nothing.  Prints bytes
                   by side, stage seconds, cold and warm GiB/s, the pinned
                   H2D rate of one slot and collect's split.
+  4b. split     — the multi-device split (codec.shard_mesh = n) on the
+                  main phase's inputs, over every visible GPU when there
+                  are two or more, else over the one card four times (its
+                  shards then run one after another on its stream): the
+                  split CudaCodec at RS(8,4) against the unsplit one (ok,
+                  digests, parity bit-equal; the summed corrupt count;
+                  one fused launch per shard), the numpy oracle, PUT
+                  hashes, encodes and degraded decodes through a
+                  CodecFeeder, an odd 5-block batch and one 1024-lane
+                  scrub_encode_batch; sharded_fns (verify at 256 lanes,
+                  rs_encode) and gf_bitmatmul against the oracle and its
+                  plain version, timed beside the GF kernel on the same
+                  codewords; make_codec("hybrid") split behind a
+                  CodecFeeder, one batch cold and a warm pass that stages
+                  nothing; a block store node whose split RS(4,2) codec
+                  scrubs 128 blocks (3 planted corruptions found, sidecars
+                  against the oracle, one block rebuilt from its sidecar);
+                  entry()'s step and dryrun_multichip(n).  Prints each
+                  dispatch's time split and unsplit.
   5. store      — one block store node's paths (slice 3a): three port
                   Systems on loopback (replication 3, sqlite, the
                   reference defaults), each with a BlockManager whose
@@ -156,7 +175,8 @@ Phases, each fatal on any mismatch or exception:
 
 Launch counts are zeroed just before each path (main's scrub / put /
 decode / 1024-lane scrub, production's cold / warm / put / decode,
-store's put / get / each scrub pass, garage's write / degraded GET /
+split's scrub / put / decode / odd / 1024-lane / sharded_fns / cold /
+warm / node scrub / node rebuild / entry, store's put / get / each scrub pass, garage's write / degraded GET /
 heal / scrub, tune); each daemon process starts with its counts at 0
 and reports them through `codec info` (daemon_n0-n2, and node 2's
 restarted process); chaos's rebuild / replay / scrub / revive, whose
@@ -826,7 +846,11 @@ GF_BODIES = {"scrub": {"k8r4"}, "put": {"k8r4"}, "decode": {"k8r2"},
              "prod_decode": {"k8r2"}, "store_scrub_n1": {"k8r4"},
              "store_rescrub_n1": {"k8r4"},
              "store_repair_n2": {"k8r4", "k8r1"}, "daemon_n0": {"k8r4"},
-             "daemon_n1": {"k8r4"}, "daemon_n2": {"k8r4"}}
+             "daemon_n1": {"k8r4"}, "daemon_n2": {"k8r4"},
+             "split_scrub": {"k8r4"}, "split_put": {"k8r4"},
+             "split_decode": {"k8r2"}, "split_odd": {"k8r4"},
+             "split_1024": {"k8r4"}, "split_prod_cold": {"k8r4"},
+             "split_prod_warm": {"k8r4"}}
 
 
 def check_gf_bodies(path: str, by_body: dict) -> None:
@@ -1073,6 +1097,461 @@ def bad_event(e) -> bool:
 async def _gather_scrubs(feeder, bs, hs):
     return await asyncio.gather(*[feeder.scrub_async(b, h)
                                   for b, h in zip(bs, hs)])
+
+
+# --- the multi-device split: CudaCodec over a device list -----------------------
+
+# the kernels each path of the split phase must launch
+SPLIT_NEEDS = {"split_scrub": CODEC_KERNELS,
+               "split_put": ("blake2s", "gf_apply"),
+               "split_decode": ("gf_apply",), "split_odd": CODEC_KERNELS,
+               "split_1024": CODEC_KERNELS, "split_sharded": ("blake2s",),
+               "split_prod_cold": CODEC_KERNELS,
+               "split_prod_warm": CODEC_KERNELS,
+               "split_node_scrub": CODEC_KERNELS,
+               "split_node_rebuild": ("gf_apply",),
+               "split_entry": CODEC_KERNELS}
+
+
+def split_devices(torch) -> list:
+    """The split phase's shards: every visible GPU when there are two or
+    more, else the one card four times over (its shards then run one
+    after another on its stream)."""
+    count = torch.cuda.device_count()
+    if count >= 2:
+        return [torch.device("cuda", i) for i in range(count)]
+    return [torch.device("cuda", 0)] * 4
+
+
+def split_ms(torch, devices, fn, reps: int) -> tuple:
+    """(ms of fn(), how it was timed): CUDA events behind a sleep kernel
+    (tools/timing.py queued_ms) when every shard is on one card; across
+    cards, the host clock around reps calls ending in a synchronize of
+    each card."""
+    from garage_tpu_torch.tools.timing import queued_ms
+
+    if len(set(devices)) == 1:
+        return queued_ms(fn, reps), "CUDA events"
+    fn()
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+    return (time.perf_counter() - t0) / reps * 1e3, "host clock"
+
+
+def phase_split(ctx) -> dict:
+    """The multi-device split (codec.shard_mesh = n) on the main phase's
+    inputs: the split CudaCodec against the unsplit one and the oracle,
+    sharded_fns and gf_bitmatmul, a split hybrid stack cold and warm, a
+    block store node's scrub and sidecar rebuild, and the entry's step
+    and dryrun_multichip."""
+    torch = ctx["torch"]
+    from garage_tpu_torch import entry as port_entry
+    from garage_tpu_torch.ops import cuda_blake2s, cuda_codec, cuda_gf, gf256
+    from garage_tpu_torch.ops import make_codec, sharded
+    from garage_tpu_torch.ops.cuda_gf import gf_apply
+    from garage_tpu_torch.ops.feeder import CodecFeeder
+    from garage_tpu_torch.tools import gf_tune
+    from garage_tpu_torch.tools.timing import HBM_BYTES_PER_S, queued_ms
+    from garage_tpu_torch.utils.data import Hash
+
+    mods = (cuda_blake2s, cuda_gf, cuda_codec, gf_tune)
+    card, reps = ctx["card"], ctx["reps"]
+    devices = split_devices(torch)
+    n = len(devices)
+    log(f"[split] {n} shards on {', '.join(str(d) for d in devices)}: "
+        f"{torch.cuda.device_count()} visible GPU(s), "
+        f"{torch.cuda.get_device_name(0)} ({card})")
+    blk, lanes = ctx["block"], ctx["scrub_lanes"]
+    k, m = 8, 4
+    mat = gf256.rs_parity_matrix(k, m)
+    batches, hashes, want_ok, want_par = ctx["scrub_input"]
+    data, put_blocks, put_parity = ctx["put_input"]
+    by_path, out = {}, {"devices": [str(d) for d in devices]}
+    t_phase = time.perf_counter()
+
+    def end_path(path):
+        torch.cuda.synchronize()
+        by_path[path] = counts_now(mods)
+        for name in SPLIT_NEEDS[path]:
+            check(by_path[path][name] > 0,
+                  f"kernel {name} was not launched on the {path} path")
+        if path in GF_BODIES:
+            check_gf_bodies(path, by_path[path]["gf_apply_by"])
+
+    # (a) the split codec at the main phase's size, against the unsplit
+    split = make_codec("cuda", rs_data=k, rs_parity=m, device=devices[0],
+                       shard_mesh=n, devices=devices)
+    one = make_codec("cuda", rs_data=k, rs_parity=m, device=ctx["device"])
+    split.warm_scrub(lanes, blk)
+    check(split.shards == devices and split.info()["shards"] ==
+          [str(d) for d in devices], f"split codec shards {split.shards}")
+    per_dispatch, host_s, bad = [], {"split": [], "unsplit": []}, 0
+
+    def scrub_batches(codec, label):
+        """Each main-phase batch staged as the split codec stages it,
+        through `codec`: [(ok, parity, digests)], one dispatch each."""
+        got = []
+        for bs, hs in zip(batches, hashes):
+            arr, lengths, expected = split._pad_group(bs, hs)
+            f0 = cuda_codec.fused_launches
+            t0 = time.perf_counter()
+            res = codec.scrub_encode_submit(arr, lengths, expected)
+            ok, par = codec.scrub_collect(res, True)
+            host_s[label].append(time.perf_counter() - t0)
+            if codec is split:
+                per_dispatch.append(cuda_codec.fused_launches - f0)
+                nonlocal bad
+                bad += int(res.bad)
+            got.append((ok, par, codec._fetch(res.digests)[0]))
+        return got
+
+    reset_counts(torch, mods)
+    split_res = scrub_batches(split, "split")
+    end_path("split_scrub")
+    for bi, (a, b) in enumerate(zip(split_res, scrub_batches(one, "unsplit"))):
+        ok, par, _dig = a
+        check(all(np.array_equal(x, y) for x, y in zip(a, b)),
+              f"split scrub batch {bi}: not bit-equal to the unsplit codec")
+        check(np.array_equal(ok[:len(batches[bi])], want_ok[bi]),
+              f"split scrub batch {bi}: ok vector wrong")
+        check(np.array_equal(par[:lanes // k, :, :blk], want_par[bi]),
+              f"split scrub batch {bi}: parity != numpy GF(2^8)")
+    planted = sum(int((~o).sum()) for o in want_ok)
+    check(bad == planted, f"split scrub counted {bad} corrupt, planted "
+          f"{planted}")
+    check(all(p == n for p in per_dispatch),
+          f"fused launches per split dispatch {per_dispatch}, expected {n}")
+    # device time of one dispatch, the last batch already on the card
+    arr, lengths, expected = split._pad_group(batches[-1], hashes[-1])
+    da = torch.from_numpy(arr).to(ctx["device"])
+    dl = torch.from_numpy(lengths).to(ctx["device"])
+    de = torch.from_numpy(expected.view(np.int32)).to(ctx["device"])
+    parts = [(da[lo:hi].to(d), dl[lo:hi].to(d), de[lo:hi].to(d))
+             for d, lo, hi in split._split(arr.shape[0], k)]
+    ms_split, how = split_ms(torch, devices,
+                             lambda: split._fused_shards(parts), reps)
+    ms_one = queued_ms(lambda: one.fused_scrub(da, dl, de), reps)
+    del parts, da, dl, de
+    nbytes = sum(map(len, batches[-1]))
+    out["dispatch"] = {"split_ms": ms_split, "unsplit_ms": ms_one,
+                       "timed_by": how, "bytes": nbytes,
+                       "split_gibs": nbytes / ms_split * 1e3 / 2**30,
+                       "unsplit_gibs": nbytes / ms_one * 1e3 / 2**30,
+                       "host_s": host_s}
+    log(f"[split] scrub {len(batches)} x {lanes} x {blk} B, {n} shards: ok, "
+        f"digests and parity == unsplit codec, parity == numpy GF(2^8), "
+        f"bad {bad} == {planted} planted; fused launches per dispatch "
+        f"{per_dispatch} ({n} per dispatch, 1 per shard)")
+    log(f"[split] one dispatch of {arr.shape[0]} lanes ({nbytes / 2**20:.1f} "
+        f"MiB) on the card ({how}): split {ms_split:.3f} ms "
+        f"({out['dispatch']['split_gibs']:.2f} GiB/s), unsplit {ms_one:.3f} "
+        f"ms ({out['dispatch']['unsplit_gibs']:.2f} GiB/s), "
+        f"{ms_split / ms_one:.2f}x; submit + collect on the host "
+        f"{np.median(host_s['split']) * 1e3:.1f} ms split, "
+        f"{np.median(host_s['unsplit']) * 1e3:.1f} ms unsplit; {card}")
+
+    feeder = CodecFeeder(split)
+    present = [0, 1, 3, 4, 6, 7, 8, 9, 10, 11]
+    lost = [2, 5]
+    ncw = data.shape[0]
+
+    async def put():
+        hs = asyncio.gather(*[feeder.hash_async([b], peers=len(put_blocks))
+                              for b in put_blocks])
+        encs = [asyncio.wrap_future(feeder.submit_encode(
+            [data[c, i].tobytes() for i in range(k)], peers=ncw))
+            for c in range(ncw)]
+        return await hs, await asyncio.gather(*encs)
+
+    async def degraded():
+        surv = np.concatenate([data, put_parity], axis=1)[:, present]
+        return await asyncio.gather(*[
+            feeder.decode_async(surv[c:c + 1], present, lost)
+            for c in range(ncw)])
+
+    reset_counts(torch, mods)
+    put_digests, enc_parity = asyncio.run(put())
+    end_path("split_put")
+    reset_counts(torch, mods)
+    decoded = asyncio.run(degraded())
+    end_path("split_decode")
+    feeder.shutdown()
+    for b, d in zip(put_blocks, put_digests):
+        check(bytes(d[0]) == hashlib_digest(b), "split PUT digest wrong")
+    check(np.array_equal(np.concatenate(enc_parity), put_parity),
+          "split write-time encode != the unsplit codec's parity")
+    for c, d in enumerate(decoded):
+        check(np.array_equal(d[0], data[c, lost]),
+              f"split degraded read codeword {c} wrong")
+    odd_b, odd_h = batches[0][:5], hashes[0][:5]
+    reset_counts(torch, mods)
+    got = split.scrub_encode_batch(odd_b, odd_h)
+    end_path("split_odd")
+    want = one.scrub_encode_batch(odd_b, odd_h)
+    check(np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+          and np.array_equal(got[0], want_ok[0][:5]),
+          "split 5-block batch != the unsplit codec")
+    all_blocks = [b for bs in batches for b in bs]
+    all_hashes = [h for hs in hashes for h in hs]
+    reset_counts(torch, mods)
+    t0 = time.perf_counter()
+    ok_w, par_w = split.scrub_encode_batch(all_blocks, all_hashes)
+    wide_s = time.perf_counter() - t0
+    end_path("split_1024")
+    check(np.array_equal(ok_w, np.concatenate(want_ok))
+          and np.array_equal(par_w, np.concatenate(want_par)),
+          f"split {len(all_blocks)}-lane scrub_encode_batch wrong")
+    out["wide_s"] = wide_s
+    log(f"[split] {len(put_blocks)} PUT hashes, {ncw} encodes, {ncw} decodes "
+        f"({lost} of 12 lost) through a CodecFeeder: == hashlib, the unsplit "
+        f"parity and the lost shards; 5-block batch == unsplit; "
+        f"{len(all_blocks)}-lane scrub_encode_batch exact in "
+        f"{wide_s * 1e3:.1f} ms")
+
+    # (b) sharded_fns and gf_bitmatmul
+    fns = sharded.sharded_fns(devices)
+    arr0, len0, exp0 = split._pad_group(batches[0], hashes[0])
+    dig0 = split_res[0][2]
+    b0 = sharded.launches
+    reset_counts(torch, mods)
+    h, ok, vbad = fns["verify"](arr0, len0, exp0)
+    check(np.array_equal(sharded.to_host(h), dig0)
+          and np.array_equal(sharded.to_host(ok)[:lanes], want_ok[0])
+          and int(vbad) == int((~want_ok[0]).sum())
+          and vbad.device == devices[0],
+          "sharded_fns verify != the unsplit codec")
+    w = np.asarray(gf256.bitmatrix_of_gf_matrix(mat), dtype=np.int8)
+    cw = np.ascontiguousarray(data[:, :, :blk // 8])
+    enc = sharded.to_host(fns["rs_encode"](cw, w))
+    end_path("split_sharded")
+    check(np.array_equal(enc, put_parity[:, :, :blk // 8])
+          and np.array_equal(enc, one.rs_encode(cw)),
+          "sharded_fns rs_encode != the oracle / the unsplit codec")
+    rng = np.random.default_rng(SEED + 9)
+    xs = torch.from_numpy(rng.integers(0, 256, (3, k, 77), dtype=np.uint8))
+    ws = torch.from_numpy(rng.integers(0, 2, (k * 8, m * 8), dtype=np.int8))
+    small = sharded.gf_bitmatmul(xs.to(ctx["device"]), ws.to(ctx["device"]))
+    check(torch.equal(small.cpu(), sharded.gf_bitmatmul_plain(xs, ws)),
+          "gf_bitmatmul on the card != its plain version")
+    x = torch.from_numpy(data).to(ctx["device"])
+    wd = torch.from_numpy(w).to(ctx["device"])
+    check(np.array_equal(sharded.gf_bitmatmul(x, wd).cpu().numpy(),
+                         put_parity),
+          f"gf_bitmatmul at {tuple(x.shape)} != numpy GF(2^8)")
+    bm_ms = queued_ms(lambda: sharded.gf_bitmatmul(x, wd), reps)
+    x32 = x.view(torch.int32).view(ncw, k, blk // 4)
+    k2_ms = queued_ms(lambda: gf_apply(x32, one._K_enc), reps)
+    del x, x32
+    bm_bytes = ncw * (k + m) * blk + w.size
+    bm_bound = bm_bytes / HBM_BYTES_PER_S * 1e3
+    out["gf_bitmatmul"] = {"shape": [ncw, k, blk], "ms": bm_ms,
+                           "k2_ms": k2_ms, "bound_ms": bm_bound,
+                           "bound_by": "bytes",
+                           "launches": sharded.launches - b0}
+    log(f"[split] sharded_fns over {n} shards: verify (256 lanes) digests "
+        f"and ok == the unsplit codec, bad {int(vbad)} on {vbad.device}; "
+        f"rs_encode {tuple(cw.shape)} == numpy GF(2^8) and the unsplit "
+        "codec; gf_bitmatmul == its plain version (3, 8, 77) and numpy "
+        f"GF(2^8) at {tuple(data.shape)}")
+    log(f"[split] gf_bitmatmul (torch._int_mm) at ({ncw}, {k}, {blk} B = "
+        f"{blk // 4} words): {bm_ms:.3f} ms (CUDA events), K2 gf_apply on "
+        f"the same codewords {k2_ms:.4f} ms, bytes bound {bm_bound:.4f} ms "
+        f"({bm_bound / bm_ms:.1%} of it); {card}")
+
+    # (c) the production stack split: make_codec("hybrid") behind a feeder
+    hy = make_codec("hybrid", rs_data=k, rs_parity=m, device=devices[0],
+                    devices=devices, shard_mesh=n, block_size=blk,
+                    device_batch_blocks=1024, hybrid_window=1,
+                    transport_staging_slots=2, pool_mib=256,
+                    pool_page_kib=256, max_device_staging_mib=4096)
+    hy.warm(blk)
+    tr, pool, obs = hy.transport, hy.pool, hy.obs
+    check(hy.tpu.shards == devices and tr is not None and tr.pinned
+          and pool is not None, "split hybrid without its pinned transport")
+    feeder = CodecFeeder(hy)
+    wb = [rng.bytes(blk) for _ in range(2 * k)]
+    wok, _ = asyncio.run(feeder.scrub_async(
+        wb, [Hash(hashlib_digest(b)) for b in wb]))
+    check(wok.all() and hy.ragged_side() == "tpu",
+          "split hybrid: warm-up batch failed or the gate stayed shut")
+    last = len(batches) - 1
+    keep = [i for i in range(lanes) if want_ok[last][i]]
+    passes = {}
+    for path, bs, hs in (
+            ("split_prod_cold", batches[last], hashes[last]),
+            ("split_prod_warm", [batches[last][i] for i in keep],
+             [hashes[last][i] for i in keep])):
+        side0, staged0 = dict(obs.bytes_total), tr.staged_bytes
+        pool0 = pool.stats()
+        reset_counts(torch, mods)
+        t0 = time.perf_counter()
+        ok, par = asyncio.run(feeder.scrub_async(bs, hs))
+        wall = time.perf_counter() - t0
+        end_path(path)
+        pst = pool.stats()
+        nb = sum(map(len, bs))
+        d = {"wall_s": wall, "bytes": nb, "gibs": nb / wall / 2**30,
+             "cpu": obs.bytes_total.get("cpu", 0) - side0.get("cpu", 0),
+             "tpu": obs.bytes_total.get("tpu", 0) - side0.get("tpu", 0),
+             "staged": tr.staged_bytes - staged0,
+             "hit": pst["hit_bytes"] - pool0["hit_bytes"],
+             "miss": pst["miss_bytes"] - pool0["miss_bytes"]}
+        passes[path] = d
+        check(d["cpu"] == 0 and d["tpu"] == nb,
+              f"{path}: bytes by side cpu {d['cpu']}, device {d['tpu']}")
+        check(d["hit"] + d["miss"] == nb,
+              f"{path}: pool hit {d['hit']} + miss {d['miss']} != {nb}")
+        if path == "split_prod_cold":
+            check(np.array_equal(ok, want_ok[last])
+                  and np.array_equal(par, want_par[last]),
+                  f"{path}: ok or parity != numpy GF(2^8)")
+        else:
+            wok, wpar = one.scrub_encode_batch(bs, hs)
+            check(ok.all() and np.array_equal(ok, wok)
+                  and np.array_equal(par, wpar),
+                  f"{path}: not bit-equal to the unsplit codec")
+            check(d["staged"] == 0 and d["hit"] == nb,
+                  f"{path}: staged {d['staged']} B, hit {d['hit']} of {nb}")
+    feeder.shutdown()
+    st = tr.stats()
+    bad_events = [e for e in obs.events_list() if bad_event(e)]
+    check(tr.alive and st["fallbacks"] == 0 and st["device_errors"] == 0
+          and not bad_events, f"split hybrid: fallbacks {st['fallbacks']}, "
+          f"errors {st['device_errors']}, events {bad_events}")
+    hy.close()
+    out["production"] = passes
+    for path, d in passes.items():
+        log(f"[split] {path}: {d['bytes'] / 2**20:.0f} MiB in "
+            f"{d['wall_s'] * 1e3:.1f} ms = {d['gibs']:.3f} GiB/s; device "
+            f"bytes {d['tpu']}, CPU 0; staged {d['staged']} B; pool hit "
+            f"{d['hit']} B, miss {d['miss']} B")
+
+    # (d) a block store node whose codec is split: scrub and sidecars
+    out["node"] = asyncio.run(split_node(ctx, devices, end_path))
+
+    # (e) the entry: the one-device step and dryrun_multichip
+    b0 = sharded.launches
+    reset_counts(torch, mods)
+    fn, args = port_entry.entry(devices[0])
+    digests, ok, nbad, parity = fn(*args)
+    port_entry.dryrun_multichip(n, devices)
+    end_path("split_entry")
+    a_data, a_shards = args[0].cpu().numpy(), args[3].cpu().numpy()
+    check(bool(ok.all()) and int(nbad) == 0 and [
+        bytes(x) for x in digests.cpu().numpy().view("<u4")] == [
+        hashlib_digest(r.tobytes()) for r in a_data],
+        "entry(): verify wrong")
+    check(np.array_equal(parity.cpu().numpy(), gf256.gf_matmul_blocks(
+        mat, a_shards)), "entry(): parity != numpy GF(2^8)")
+    log(f"[split] entry(): step on {devices[0]} exact; dryrun_multichip({n}) "
+        f"passed; gf_bitmatmul launches {sharded.launches - b0}")
+
+    for path, counts in by_path.items():
+        log(f"[split] launches on the {path} path: {json.dumps(counts)}")
+    launches = {name: sum(c[name] for c in by_path.values())
+                for name in CODEC_KERNELS}
+    out.update(launches=launches, launches_by_path=by_path,
+               fused_per_dispatch=per_dispatch,
+               seconds=time.perf_counter() - t_phase)
+    log(f"[split] launches over the split phase: {json.dumps(launches)}; "
+        f"K4 {n} per scrub dispatch, 1 per shard; phase "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+async def split_node(ctx, devices, end_path) -> dict:
+    """A block store node (Config, System, BlockManager with a
+    ParityStore, RS(4, 2)) whose codec is CudaCodec split over
+    `devices`: 128 blocks written, 3 files corrupted, one ScrubWorker
+    pass, the sidecars against the numpy oracle, one lost block rebuilt
+    from its sidecar."""
+    torch = ctx["torch"]
+    from garage_tpu_torch.block import BlockManager, ScrubWorker
+    from garage_tpu_torch.block.block import DataBlock
+    from garage_tpu_torch.block.parity import ParityStore
+    from garage_tpu_torch.db import open_db
+    from garage_tpu_torch.ops import cuda_blake2s, cuda_codec, cuda_gf, gf256
+    from garage_tpu_torch.ops import make_codec
+    from garage_tpu_torch.rpc.system import System
+    from garage_tpu_torch.table import TableShardedReplication
+    from garage_tpu_torch.tools import gf_tune
+    from garage_tpu_torch.utils.config import config_from_dict
+    from garage_tpu_torch.utils.data import Hash
+
+    mods = (cuda_blake2s, cuda_gf, cuda_codec, gf_tune)
+    blk, n = ctx["block"], len(devices)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_split_"))
+    try:
+        cfg = config_from_dict({
+            "metadata_dir": str(root / "meta"),
+            "data_dir": str(root / "data"), "replication_mode": "1",
+            "block_size": blk, "rpc_secret": "chip-smoke-split",
+            "codec": {"backend": "cuda", "rs_data": 4, "rs_parity": 2,
+                      "store_parity": True, "shard_mesh": n}})
+        s = System(cfg)
+        codec = make_codec("cuda", rs_data=4, rs_parity=2, device=devices[0],
+                           devices=devices, shard_mesh=n, block_size=blk)
+        db = open_db("memory")
+        mode = s.replication_mode
+        node = BlockManager(cfg, db, s, TableShardedReplication(
+            s, mode.replication_factor, 1, mode.write_quorum), codec=codec)
+        node.parity_store = store = ParityStore(node, db, node.codec)
+        rng = np.random.default_rng(SEED + 11)
+        blocks = [rng.bytes(blk) for _ in range(128)]
+        hashes = [Hash(hashlib_digest(b)) for b in blocks]
+        t0 = time.perf_counter()
+        for h, b in zip(hashes, blocks):
+            await node.write_block(h, DataBlock.plain(b))
+        write_s = time.perf_counter() - t0
+        planted = [int(i) for i in rng.choice(len(blocks), 3, replace=False)]
+        for i in planted:
+            flip_byte(node.find_block(hashes[i])[0], blk // 2)
+        w = ScrubWorker(node)
+        w.set_tranquility(0)
+        reset_counts(torch, mods)
+        t0 = time.perf_counter()
+        w.send_command("start")
+        while (await w.work()).name in ("BUSY", "THROTTLED"):
+            pass
+        scrub_s = time.perf_counter() - t0
+        end_path("split_node_scrub")
+        check(w.state.corruptions == 3, f"split node scrub found "
+              f"{w.state.corruptions} of 3 planted corruptions")
+        by_hash = {bytes(h): b for h, b in zip(hashes, blocks)}
+        sidecars = sidecar_parity_checked(store, by_hash, ctx["oracle"],
+                                          gf256.rs_parity_matrix(4, 2))
+        check(sidecars > 0, "split node scrub wrote no sidecar")
+        victim = None
+        for i, h in enumerate(hashes):
+            if i in planted or not store.coverage(h):
+                continue
+            man = store._load_manifest(h)
+            if all(store._read_verified_member(Hash(bytes(x))) is not None
+                   for x in man["hashes"] if bytes(x) != bytes(h)):
+                victim = i
+                break
+        check(victim is not None, "split node: no block to rebuild")
+        os.remove(node.find_block(hashes[victim])[0])
+        reset_counts(torch, mods)
+        rec = await asyncio.to_thread(store.try_reconstruct, hashes[victim])
+        end_path("split_node_rebuild")
+        check(rec == blocks[victim], "split node: sidecar rebuild not exact")
+        node.feeder.shutdown()
+        res = {"blocks": len(blocks), "write_s": write_s, "scrub_s": scrub_s,
+               "scrub_mibs": len(blocks) * blk / scrub_s / 2**20,
+               "corruptions": w.state.corruptions, "sidecars": sidecars}
+        log(f"[split] node: {len(blocks)} x {blk} B written in {write_s:.2f} "
+            f"s; ScrubWorker pass {scrub_s:.2f} s ({res['scrub_mibs']:.1f} "
+            f"MiB/s), 3 of 3 corruptions found; {sidecars} sidecars == numpy "
+            f"GF(2^8); block {victim} rebuilt from its sidecar bit-exact")
+        return res
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # --- the block store node: Config → System → BlockManager → ScrubWorker ---
@@ -3760,8 +4239,8 @@ def gf_times(ctx, reps: int) -> dict:
     return res
 
 
-def phase_times(ctx, main: dict, prod: dict, store: dict, garage: dict,
-                daemon: dict, chaos: dict, tune: dict) -> list:
+def phase_times(ctx, main: dict, prod: dict, split: dict, store: dict,
+                garage: dict, daemon: dict, chaos: dict, tune: dict) -> list:
     torch = ctx["torch"]
     from garage_tpu_torch.ops.cuda_blake2s import blake2s_batch, g_chain_cycles
     from garage_tpu_torch.tools.timing import queued_ms
@@ -3825,11 +4304,11 @@ def phase_times(ctx, main: dict, prod: dict, store: dict, garage: dict,
                      "narrow_runtime_ms": gf["narrow"]["runtime_ms"],
                      "full_decode_ms": gf["full_decode"]["ms"],
                      "launches_by_body": gf_bodies_launched(
-                         main, prod, store, garage, daemon, chaos)},
+                         main, prod, split, store, garage, daemon, chaos)},
         "fused_scrub": {},
     }
     rows, bounds = [], {}
-    paths = (main, prod, store, garage, daemon, chaos)
+    paths = (main, prod, split, store, garage, daemon, chaos)
     by_path = {p: c for path in paths
                for p, c in path["launches_by_path"].items()}
     for name in CODEC_KERNELS:
@@ -3978,6 +4457,10 @@ def main() -> int:
     for name in CODEC_KERNELS:
         check(prod_out["launches"][name] > 0,
               f"kernel {name} was not launched on the production path")
+    split_out = phase_split(ctx)
+    for name in CODEC_KERNELS:
+        check(split_out["launches"][name] > 0,
+              f"kernel {name} was not launched on the split path")
     store_out = phase_store(ctx)
     for name in CODEC_KERNELS:
         check(store_out["launches"][name] > 0,
@@ -3995,15 +4478,15 @@ def main() -> int:
         check(chaos_out["launches"][name] > 0,
               f"kernel {name} was not launched on the chaos path")
     tune_out = phase_tune(ctx)
-    rows = phase_times(ctx, main_out, prod_out, store_out, garage_out,
-                       daemon_out, chaos_out, tune_out)
+    rows = phase_times(ctx, main_out, prod_out, split_out, store_out,
+                       garage_out, daemon_out, chaos_out, tune_out)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({
             "card": card, "kernels": rows, "build_s": ctx["build_s"],
             "main": {k: v for k, v in main_out.items()},
-            "production": prod_out, "store": store_out,
+            "production": prod_out, "split": split_out, "store": store_out,
             "garage": garage_out, "daemon": daemon_out, "chaos": chaos_out,
             "tune": tune_out,
             "summary": ctx["summary"], "quick": args.quick}, indent=1,

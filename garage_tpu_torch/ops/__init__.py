@@ -20,21 +20,24 @@ from .codec import BlockCodec, CodecParams
 
 
 def make_codec(backend: str = "cuda", metrics=None, tracer=None,
-               device="cuda", **kw) -> BlockCodec:
+               device="cuda", devices=None, **kw) -> BlockCodec:
     """Codec factory.  ``backend="cuda"`` builds a CudaCodec and
     ``"hybrid"`` a HybridCodec whose device side is a CudaCodec, both on
     `device`: "cuda" (the default) needs a GPU and raises without one;
-    "cpu" runs the kernels' plain versions (the tests' path).  ``"cpu"``
-    builds the CPU codec, which has no device."""
+    "cpu" runs the kernels' plain versions (the tests' path).  With
+    ``shard_mesh=n > 1`` the CudaCodec splits every batch over n devices:
+    the first n of `devices` when given, else the first n GPUs (raising
+    when there are fewer) or n times "cpu".  ``"cpu"`` builds the CPU
+    codec, which has no device."""
     if backend == "cpu":
         from .cpu_codec import CpuCodec
         return CpuCodec(CodecParams(**kw), metrics=metrics, tracer=tracer)
     if backend == "cuda":
         from .cuda_codec import CudaCodec
-        return CudaCodec(CodecParams(**kw), device=device, metrics=metrics,
-                         tracer=tracer)
+        return CudaCodec(CodecParams(**kw), device=device, devices=devices,
+                         metrics=metrics, tracer=tracer)
     if backend == "hybrid":
         from .hybrid_codec import HybridCodec
-        return HybridCodec(CodecParams(**kw), device=device, metrics=metrics,
-                           tracer=tracer)
+        return HybridCodec(CodecParams(**kw), device=device, devices=devices,
+                           metrics=metrics, tracer=tracer)
     raise ValueError(f"unknown codec backend {backend!r}")

@@ -35,7 +35,7 @@ class CodecParams:
     rs_parity: int = 4        # m
     compression_level: Optional[int] = 1
     batch_blocks: int = 256
-    shard_mesh: int = 1       # devices to shard codec batches over (tpu)
+    shard_mesh: int = 1       # devices to split codec batches over (cuda)
     # Work-stealing quantum (hybrid backend): 16 blocks = 2 RS codewords.
     # Measured on the 1-core host + metered TPU link: small groups keep the
     # CPU side's working set cache-resident (hash + GF encode reuse the

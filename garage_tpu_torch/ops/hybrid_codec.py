@@ -45,11 +45,11 @@ import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from ..utils.data import Hash
 from .codec import BlockCodec, CodecParams
 from .cpu_codec import CpuCodec
+from .sharded import to_host
 from .transport import on_card
 
 logger = logging.getLogger("garage_tpu_torch.ops.hybrid")
@@ -76,12 +76,12 @@ atexit.register(_drain_feeders_at_exit)
 
 
 def _to_host(x) -> np.ndarray:
-    """A device result as a numpy array: a torch tensor (CudaCodec) is
-    copied to the host, which waits for the kernels that produce it;
-    anything else (the synthetic link's lazy handles) through
-    np.asarray."""
-    if isinstance(x, torch.Tensor):
-        return x.cpu().numpy()
+    """A device result as a numpy array: a CudaCodec result, its shards'
+    torch tensors, is copied to the host in lane order, which waits for
+    the kernels that produce it; anything else (the synthetic link's lazy
+    handles) through np.asarray."""
+    if isinstance(x, list):
+        return to_host(x)
     return np.asarray(x)
 
 
@@ -90,12 +90,13 @@ class HybridCodec(BlockCodec):
 
     def __init__(self, params: CodecParams,
                  device_codec: Optional[BlockCodec] = None,
-                 build_device: bool = True, device="cuda", metrics=None,
-                 tracer=None):
+                 build_device: bool = True, device="cuda", devices=None,
+                 metrics=None, tracer=None):
         """build_device: True builds a CudaCodec on `device` now ("cuda",
         the default, raises without a GPU; "cpu" runs the kernels' plain
-        versions); False never builds one — the pure CPU floor.  A given
-        `device_codec` (a test backend) is used as it is.
+        versions), split over `devices` when ``params.shard_mesh > 1``
+        (CudaCodec's rule); False never builds one — the pure CPU floor.
+        A given `device_codec` (a test backend) is used as it is.
 
         metrics/tracer: the System-owned MetricsRegistry/Tracer — stage
         histograms, bytes-by-side counters, and the gate-decision event
@@ -107,6 +108,7 @@ class HybridCodec(BlockCodec):
         self.cpu = CpuCodec(params)
         self.tpu = device_codec
         self.device = device
+        self.devices = devices
         # group = the stealing quantum; must be k-aligned so each group's
         # parity layout is self-contained (k=0: replication-only config, no
         # RS — groups need no alignment and scrub is verify-only)
@@ -260,7 +262,7 @@ class HybridCodec(BlockCodec):
             # the device codec SHARES this hybrid's observer: its
             # sync failures land in the same event ring as gate decisions
             dev = CudaCodec(self.params, device=self.device,
-                            observer=self.obs)
+                            devices=self.devices, observer=self.obs)
             # CudaCodec builds its kernels lazily; build them here so a
             # failing nvcc raises now, not as a gate that never opens
             dev.warm_scrub(1, self.params.block_size)

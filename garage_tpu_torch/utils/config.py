@@ -180,7 +180,10 @@ class CodecConfig:
         `device` is where the cuda and hybrid backends run: "cuda" (the
         GPU; raises without one) unless a caller asks for "cpu", where
         the kernels' plain versions run.  It is an argument, not a
-        config key: a deployment always runs on the card.
+        config key: a deployment always runs on the card.  With
+        `shard_mesh` = n > 1 the codec splits every batch over the
+        first n GPUs (ValueError when the host has fewer), or over n
+        times the CPU device.
 
         metrics/tracer plumb the System's MetricsRegistry/Tracer into
         the codec: per-stage histograms, bytes-by-side counters, and the

@@ -238,8 +238,9 @@ def test_load_reference_matrices(ref, port):
 
 def test_no_fallback_and_unported_backends(monkeypatch):
     """The device backends default to the card and raise without one;
-    the CPU backend has no device; unknown backends and the multi-GPU
-    split (not ported) raise."""
+    the CPU backend has no device; unknown backends raise, and so does a
+    multi-GPU split over more GPUs than the host has; on the CPU device
+    the split builds."""
     from garage_tpu_torch.ops.cpu_codec import CpuCodec
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -249,8 +250,11 @@ def test_no_fallback_and_unported_backends(monkeypatch):
     assert isinstance(make_codec("cpu"), CpuCodec)
     with pytest.raises(ValueError, match="unknown codec backend"):
         make_codec("tpu")
-    with pytest.raises(ValueError, match="multi-GPU split not ported yet"):
-        make_codec("cuda", device="cpu", shard_mesh=2)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match=r"shard_mesh=2 .*device_count\(\) is 1"):
+        make_codec("cuda", shard_mesh=2)
+    split = make_codec("cuda", device="cpu", shard_mesh=2)
+    assert split.shards == [torch.device("cpu")] * 2
     with pytest.raises(ValueError, match="blake2s only"):
         make_codec("cuda", device="cpu", hash_algo="sha256")
 

@@ -354,3 +354,139 @@ def test_store_node_scrub_on_the_card(gpu, tmp_path):
         assert after["tpu"] - before.get("tpu", 0) == sum(map(len, blocks))
 
     asyncio.run(run())
+
+
+def _split_pair(gpu, kind="cuda", **kw):
+    """(unsplit, split over [gpu] * 4) codecs of one kind at RS(4, 2)."""
+    one = make_codec(kind, rs_data=4, rs_parity=2, device=gpu, **kw)
+    split = make_codec(kind, rs_data=4, rs_parity=2, device=gpu,
+                       shard_mesh=4, devices=[gpu] * 4, **kw)
+    return one, split
+
+
+def test_split_codec_matches_unsplit(gpu):
+    """CudaCodec split 4 ways over one card: the fused scrub (one launch
+    per shard, the summed corrupt count), hashes, verifies, encodes,
+    reconstructs and a pinned submit equal the unsplit codec's."""
+    one, split = _split_pair(gpu)
+    assert split.shards == [gpu] * 4 and split.info()["shards"] == \
+        [str(gpu)] * 4
+    blocks, hashes, _ = _scrub_inputs(one)
+    arr, lengths, expected = split._pad_group(blocks, hashes)
+    assert arr.shape[0] % 16 == 0
+    before = cuda_codec.fused_launches
+    out = split.scrub_encode_submit(arr, lengths, expected)
+    got = split.scrub_collect(out, True)
+    assert cuda_codec.fused_launches == before + 4 and int(out.bad) == 1
+    pinned = torch.empty(arr.shape, dtype=torch.uint8, pin_memory=True)
+    pinned.numpy()[:] = arr
+    got_pinned = split.scrub_collect(
+        split.scrub_encode_submit(pinned, lengths, expected), True)
+    want = one.scrub_collect(one.scrub_encode_submit(arr, lengths, expected),
+                             True)
+    for a in (got, got_pinned):
+        assert np.array_equal(a[0], want[0]) and np.array_equal(a[1], want[1])
+    for a, b in zip(split.scrub_encode_batch(blocks, hashes),
+                    one.scrub_encode_batch(blocks, hashes)):
+        assert np.array_equal(a, b)
+    assert split.batch_hash(blocks) == one.batch_hash(blocks)
+    assert np.array_equal(split.batch_verify(blocks, hashes),
+                          one.batch_verify(blocks, hashes))
+    rng = np.random.default_rng(33)
+    data = rng.integers(0, 256, (5, 4, 1000), dtype=np.uint8)
+    parity = split.rs_encode(data)
+    assert np.array_equal(parity, one.rs_encode(data))
+    full = np.concatenate([data, parity], axis=1)
+    present = [0, 2, 3, 5]
+    assert np.array_equal(split.rs_reconstruct(full[:, present], present),
+                          data)
+    assert np.array_equal(
+        split.decode_collect(split.decode_submit(full[:, present], present,
+                                                 [1])), data[:, [1]])
+
+
+def test_split_resident_submit_moves_pages_between_shards(gpu):
+    """Pages adopted from one split batch, composed into the lanes of
+    another shard (the batch shifted by one codeword), give the plain
+    submit's results."""
+    one, split = _split_pair(gpu)
+    blocks, hashes, (arr, lengths, expected) = _scrub_inputs(one)
+    arr, lengths, expected = split._pad_group(blocks, hashes)
+    lanes = list(range(arr.shape[0]))
+    out, parts = split.scrub_encode_submit_resident(arr, lanes, lengths,
+                                                    expected, [])
+    split.scrub_collect(out, True)
+    assert isinstance(parts, list) and len(parts) == 4
+    pages = {r: split.pool_adopt(parts, r, int(lengths[r]), 1000)
+             for r in lanes if lengths[r]}
+    shift = 4   # one codeword: lane r's page serves lane r + 4
+    arr2 = np.roll(arr, shift, axis=0)
+    len2, exp2 = np.roll(lengths, shift), np.roll(expected, shift, axis=0)
+    resident = [(r + shift, pg, int(lengths[r])) for r, pg in pages.items()
+                if r + shift < arr.shape[0]]
+    miss = [r for r in lanes if r not in {x[0] for x in resident}]
+    out, _ = split.scrub_encode_submit_resident(arr2[miss], miss, len2, exp2,
+                                                resident)
+    got = split.scrub_collect(out, True)
+    want = one.scrub_collect(one.scrub_encode_submit(arr2, len2, exp2), True)
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+def test_gf_bitmatmul_and_sharded_fns_on_the_card(gpu):
+    """gf_bitmatmul on the card (torch._int_mm) equals its plain version
+    on random GF(2) matrices, below and above _int_mm's 17-row minimum;
+    sharded_fns over [gpu] * 4 equals the oracle and the codec."""
+    from garage_tpu_torch.ops import sharded
+
+    rng = np.random.default_rng(44)
+    for k, r, s in ((8, 4, 77), (4, 2, 3), (3, 1, 1000)):
+        x = torch.from_numpy(rng.integers(0, 256, (3, k, s), dtype=np.uint8))
+        w = torch.from_numpy(rng.integers(0, 2, (k * 8, r * 8),
+                                          dtype=np.int8))
+        before = sharded.launches
+        got = sharded.gf_bitmatmul(x.to(gpu), w.to(gpu))
+        assert sharded.launches == before + 1
+        assert torch.equal(got.cpu(), sharded.gf_bitmatmul_plain(x, w))
+    fns = sharded.sharded_fns([gpu] * 4)
+    data = rng.integers(0, 256, (16, 256), dtype=np.uint8)
+    lengths = np.full(16, 256, np.int32)
+    expected = np.stack([np.frombuffer(_digest(d.tobytes()), "<u4")
+                         for d in data]).astype(np.uint32)
+    expected[5] ^= 1
+    h, ok, bad = fns["verify"](data, lengths, expected)
+    assert int(bad) == 1 and sharded.to_host(ok).tolist() == \
+        [i != 5 for i in range(16)]
+    pm = gf256.rs_parity_matrix(4, 2)
+    w = np.asarray(gf256.bitmatrix_of_gf_matrix(pm), dtype=np.int8)
+    shards = rng.integers(0, 256, (16, 4, 512), dtype=np.uint8)
+    assert np.array_equal(sharded.to_host(fns["rs_encode"](shards, w)),
+                          gf256.gf_matmul_blocks(pm, shards))
+
+
+def test_split_hybrid_on_the_card_cold_then_warm(gpu):
+    """make_codec("hybrid", shard_mesh=4) on one card behind the feeder:
+    results equal the CPU codec's cold and warm, and the warm pass
+    stages only the lane that never verifies."""
+    import asyncio
+
+    from garage_tpu_torch.ops.feeder import CodecFeeder
+
+    _one, hy = _split_pair(gpu, "hybrid", block_size=4096, pool_page_kib=1)
+    cpu = make_codec("cpu", rs_data=4, rs_parity=2)
+    assert hy.tpu.shards == [gpu] * 4 and hy.transport.pinned
+    feeder = CodecFeeder(hy)
+    blocks, hashes, _ = _scrub_inputs(hy.tpu)
+    want = cpu.scrub_encode_batch(blocks, hashes)
+    try:
+        for _ in range(2):
+            ok, par = asyncio.run(feeder.scrub_async(blocks, hashes))
+            assert np.array_equal(ok, want[0]) and np.array_equal(par, want[1])
+        staged = hy.transport.staged_bytes
+        ok, par = asyncio.run(feeder.scrub_async(blocks, hashes))
+        assert np.array_equal(par, want[1])
+        assert hy.transport.staged_bytes == staged + len(blocks[4])
+        assert hy.transport.stats()["fallbacks"] == 0
+    finally:
+        feeder.shutdown()
+        _one.close()
+        hy.close()
