@@ -69,7 +69,7 @@ Phases, each fatal on any mismatch or exception:
                   Systems on loopback (replication 3, sqlite, the
                   reference defaults), each with a BlockManager whose
                   codec its Config builds on the card: hybrid, cuda,
-                  and hybrid with a ParityStore.  512 blocks of 1 MiB
+                  and hybrid with a ParityStore.  256 blocks of 1 MiB
                   (the last of every 256 700,001 B, 1 in 16 stored
                   compressed) hashed by node 0's feeder and written with
                   rpc_put_block; 128 GETs on node 1 verified on the card,
@@ -88,7 +88,7 @@ Phases, each fatal on any mismatch or exception:
                   replication 3, data "none", sqlite, RS(8,4) at 1 MiB
                   blocks with store_parity, parity_on_write and
                   parity_distribute, repair_ppr off; node 1 hybrid, the
-                  rest cuda): 512 blocks in objects of 1-64 MiB written
+                  rest cuda): 256 blocks in objects of 1-64 MiB written
                   through node 0 (feeder hash, rpc_put_block, Version and
                   Object rows), every block's parity-index row and every
                   codeword's parity against the numpy oracle; 8 degraded
@@ -155,6 +155,24 @@ Phases, each fatal on any mismatch or exception:
                   storage nodes in 3 zones.  The phase runs in a child
                   interpreter (this script with --chaos-child), which
                   returns its measurements and launch counts.
+  8b. tools     — the operator and device tools (slice 6), each its own
+                  `python -m garage_tpu_torch.tools.<name>` process on the
+                  card, a non-zero exit failing the phase: (a) blake2s_tune,
+                  K1 at 256, 1024 and 2048 lanes of 1 MiB, every lane
+                  against the host's native BLAKE2s; (b) device_capture at
+                  full width (the link rates, K4 on its rungs, K2,
+                  gf_bitmatmul and K3 at RS(8,4), the 2 GiB hybrid window);
+                  (c) transport_smoke, pool_smoke and link_profile with the
+                  reference's invariants; (d) tools/dev_cluster.sh and
+                  dev_configure.sh under a temporary GARAGE_TPU_DEV_DIR
+                  (three hybrid daemons on the reference's ports
+                  3900-3924), then smoke, metadata_smoke (5,000 objects),
+                  cpu_profile, a scrub on every node, device_timeline (the
+                  feeder's and the transport's events) and incident_dump;
+                  every node's `codec info` shows K1 and K4 launches, and
+                  SIGTERM ends each daemon with exit code 0; (e) tools/
+                  chaos.py --quick --phases partition,disk, every codec on
+                  the card, zero client errors.
   9. tune       — T1's path: tools/gf_tune.py's sweep of the GF kernel's
                   loop orders x tiles, each cell checked and timed, with
                   each variant's SASS census and the issue bound it
@@ -181,6 +199,8 @@ heal / scrub, tune); each daemon process starts with its counts at 0
 and reports them through `codec info` (daemon_n0-n2, and node 2's
 restarted process); chaos's rebuild / replay / scrub / revive, whose
 launches are also attributed to nodes through their codecs;
+the tools' own processes (blake2s_tune, device_capture, the three
+smokes, each dev node's `codec info`, chaos), each counting from 0;
 and read just after it; each path must have launched every kernel it
 runs, and the GF kernel only the body each path needs (GF_BODIES).
 The sizes are the reference configuration's defaults: 1 MiB
@@ -195,6 +215,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import concurrent.futures
 import hashlib
 import hmac
 import http.client
@@ -219,32 +240,8 @@ import numpy as np
 SEED = 20261016
 MIB = 1 << 20
 CODEC_KERNELS = ("blake2s", "gf_apply", "fused_scrub")
+HOST_OPS = 20000  # one-element ops timed for the host's dispatch cost
 KERNELS = CODEC_KERNELS + ("gf_tune",)
-# Operations bounds: the larger of a kernel's ALU-only integer
-# instructions over the SMs' 64 ALU lanes and all of them over the 128
-# lanes the schedulers issue, x 132 SMs x 1.98 GHz (tools/timing.py
-# ``ops_ms``, which says where the rates come from).  phase_times checks
-# the ALU rate on the card: the SASS census of the GF kernel's RS(8,4) and
-# RS(8,8) bodies, whose ALU work outweighs their bytes, over their
-# measured times gives the ALU lanes issued per SM per clock; on an H100
-# at 700 W both came to ~57 (PERF.md), below 64.
-# BLAKE2s per 64-byte chunk, in the fewest 32-bit instructions: a G is 4
-# three-input adds (a + b + m is one IADD3), 4 xors and 4 rotates (one
-# funnel shift each), 12 in all; 80 G, the counter and flag words (an xor
-# and a select), and the 8 three-input xors of the feed-forward.  All but
-# the adds are ALU-only.
-B2S_OPS_PER_CHUNK = 80 * 12 + 2 + 8
-B2S_ALU_OPS_PER_CHUNK = 80 * 8 + 2 + 8
-# ... and its dependent chain (csrc/blake2s.cu:42-94): in a G each step
-# needs the one before (IADD3, then LOP3 xor and SHF rotate of d, IADD3
-# of c, LOP3 and SHF of b, and again: 12); the 4 column G of a round are
-# independent of each other but the 4 diagonal G read their outputs, so a
-# round is 2 G deep; 10 rounds and the feed-forward's one three-input xor
-# (h ^= v[i] ^ v[i + 8]), on which the next chunk's first G waits: 20 G
-# and one instruction, 241 dependent instructions per chunk.  Each costs
-# the latency the chain probe measures on the card (g_chain_cycles / 12).
-B2S_G_DEPTH = 12
-B2S_CHAIN_G_PER_CHUNK = 10 * 2
 
 
 def log(msg: str) -> None:
@@ -320,64 +317,6 @@ def stage_delta(before: dict, after: dict) -> dict:
     """Seconds each observer stage gained between two snapshots."""
     return {k: round(v - before.get(k, 0.0), 6) for k, v in after.items()
             if v - before.get(k, 0.0) > 0}
-
-
-def bound_ms(nbytes: float, alu_ops: float, ops: float, dep_ms: float = 0.0):
-    """(bound in ms, "bytes" or "operations"): the larger of the bytes
-    over the HBM rate and the operations' least time, itself the larger of
-    their issue (ops_ms) and their longest dependent chain (`dep_ms`)."""
-    from garage_tpu_torch.tools.timing import HBM_BYTES_PER_S, ops_ms
-
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = max(ops_ms(alu_ops, ops), dep_ms)
-    return (tb, "bytes") if tb >= to else (to, "operations")
-
-
-def b2s_work(lengths: np.ndarray, cols: int):
-    """(bytes, ALU-only instructions, instructions) BLAKE2s must do for
-    these lanes: each lane's chunks up to its own end, read once, and its
-    32-byte digest written."""
-    nch = np.minimum(np.maximum((lengths.astype(np.int64) + 63) // 64, 1),
-                     cols // 64)
-    chunks = int(nch.sum())
-    return (chunks * 64 + lengths.size * (4 + 32),
-            chunks * B2S_ALU_OPS_PER_CHUNK, chunks * B2S_OPS_PER_CHUNK)
-
-
-def b2s_message_ms(lengths: np.ndarray, cols: int, g_cycles: float,
-                   clock_hz: float):
-    """(chain ms, issue ms): two least times of the longest message, which
-    one thread hashes alone, so no parallel lane can shorten them.  Its
-    chunks, each a dependent chain of B2S_CHAIN_G_PER_CHUNK G and one xor
-    at `g_cycles` per G (the chain probe's measure); and its chunks'
-    B2S_OPS_PER_CHUNK instructions, which its warp issues at one per
-    clock at most.  At the SM clock `clock_hz`."""
-    chain = int(min(max((int(lengths.max()) + 63) // 64, 1), cols // 64))
-    per_chunk = (B2S_CHAIN_G_PER_CHUNK + 1 / B2S_G_DEPTH) * g_cycles
-    return (chain * per_chunk / clock_hz * 1e3,
-            chain * B2S_OPS_PER_CHUNK / clock_hz * 1e3)
-
-
-def time_kernel_clocked(torch, fn, flush=None):
-    """(mean ms of fn() on the card, median SM clock in MHz): queued_ms
-    over enough calls for 400 ms of kernel time, with nvidia-smi sampling
-    clocks.sm every 20 ms beside it."""
-    from garage_tpu_torch.tools.timing import queued_ms
-
-    est = queued_ms(fn, 2, flush)
-    reps = max(3, int(400.0 / max(est, 1e-3)) + 1)
-    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm",
-                            "--format=csv,noheader,nounits", "-lms", "20"],
-                           stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
-                           text=True)
-    try:
-        ms = queued_ms(fn, reps, flush)
-    finally:
-        smi.terminate()
-        out, _ = smi.communicate(timeout=60)
-    samples = [float(x) for x in out.split() if x.replace(".", "").isdigit()]
-    check(bool(samples), "nvidia-smi gave no clocks.sm sample")
-    return ms, float(np.median(samples))
 
 
 # (regime, codewords, S4): the reference's two dispatch regimes, each at a
@@ -488,6 +427,15 @@ def phase_kernels(ctx) -> None:
     expected[planted] ^= np.uint32(1)
     de = torch.from_numpy(expected.view(np.int32)).to(dev)
     K_enc = consts_from_numpy(mat, dev)
+
+    # the host's cost of one small op on the card: the plain versions
+    # are chains of such ops, so their time follows the host, not the card
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    _, ops_ms = time_host(torch, lambda: [one.add_(1)
+                                          for _ in range(HOST_OPS)])
+    ctx["host_op_us"] = ops_ms * 1e3 / HOST_OPS
+    log(f"[kernels] host dispatch: {HOST_OPS} one-element ops on the card "
+        f"in {ops_ms:.1f} ms, {ctx['host_op_us']:.2f} us each")
 
     # the fused scrub's plain version, run once on these inputs: its
     # digests are K1's plain result too, and its hash step is timed for
@@ -4096,6 +4044,288 @@ async def _chaos_replay(ctx, root: Path, path_counter, pauses) -> dict:
         log(f"[chaos] (b) cluster stopped in {time.perf_counter() - t:.1f} s")
 
 
+# --- tools ---------------------------------------------------------------------
+
+# the launch counts of a tool that reports only K1's (blake2s_tune)
+NO_LAUNCHES = {"blake2s": 0, "gf_apply": 0, "gf_apply_by": {},
+               "fused_scrub": 0}
+TOOLS_NEEDS = {"tools_b2s_tune": ("blake2s",),
+               "tools_capture": CODEC_KERNELS,
+               "tools_transport": ("blake2s", "fused_scrub"),
+               "tools_pool": ("fused_scrub",),
+               "tools_link": ("blake2s", "gf_apply"),
+               "tools_dev_n0": ("blake2s", "fused_scrub"),
+               "tools_dev_n1": ("blake2s", "fused_scrub"),
+               "tools_dev_n2": ("blake2s", "fused_scrub"),
+               "tools_chaos": ("blake2s",)}
+TOOL_TIMEOUT_S = 300
+DEV_NODES = 3
+
+
+def run_tool(ctx, name: str, *args, env=None, timeout=TOOL_TIMEOUT_S,
+             log_to=None) -> str:
+    """`python -m garage_tpu_torch.tools.<name> *args` from the checkout's
+    root; its stdout.  Fails when it exits non-zero."""
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run([sys.executable, "-m",
+                            f"garage_tpu_torch.tools.{name}", *args],
+                           cwd=str(ctx["repo"]), env=env or tool_env(ctx),
+                           capture_output=True, text=True, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        fail(f"tools: {name} did not finish in {timeout} s")
+    secs = time.perf_counter() - t0
+    ctx.setdefault("tool_s", {})[log_to or name] = secs
+    check(r.returncode == 0, f"tools: {name} {' '.join(args)} exited "
+          f"{r.returncode}: {r.stdout[-2000:]}{r.stderr[-3000:]}")
+    log(f"[tools] {name} {' '.join(args)}: rc 0 in {secs:.1f} s")
+    return r.stdout
+
+
+def tool_json(out: str, prefix: str = "") -> dict:
+    """The tool's result: its last stdout line that is a JSON object
+    (after `prefix`, for chaos's "CHAOS {...}")."""
+    for line in reversed(out.splitlines()):
+        line = line.strip()
+        if line.startswith(prefix + "{"):
+            return json.loads(line[len(prefix):])
+    fail(f"tools: no JSON result line in {out[-1000:]}")
+
+
+def tool_env(ctx, **extra) -> dict:
+    return dict(os.environ, PYTHONPATH=str(ctx["repo"]), **extra)
+
+
+def dev_cli_all(ctx, env: dict, base: Path, *args) -> list:
+    """`python -m garage_tpu_torch -c nodeI/garage.toml *args` on every dev
+    node at once (the CLI imports no torch); their stdouts by node."""
+    def one(i):
+        return subprocess.run(
+            [sys.executable, "-m", "garage_tpu_torch", "-c",
+             str(base / f"node{i}" / "garage.toml"), *args],
+            cwd=str(ctx["repo"]), env=env, capture_output=True, text=True,
+            timeout=120)
+
+    with concurrent.futures.ThreadPoolExecutor(DEV_NODES) as pool:
+        runs = list(pool.map(one, range(DEV_NODES)))
+    for i, r in enumerate(runs):
+        check(r.returncode == 0, f"tools: CLI {' '.join(args)} on dev node "
+              f"{i} exited {r.returncode}: {r.stdout[-1500:]}"
+              f"{r.stderr[-1500:]}")
+    return [r.stdout for r in runs]
+
+
+def phase_tools(ctx) -> dict:
+    """The operator and device tools of the port, each its own process on
+    the card: (a) the K1 lane sweep, (b) the device capture, (c) the
+    transport, pool and link smokes, (d) the dev cluster through its
+    scripts and smokes, a scrub on every node, (e) the chaos drill's
+    partition and disk phases."""
+    torch = ctx["torch"]
+    card = ctx["card"]
+    out, by_path = {}, {}
+    # (a) K1 at 256, 1024 and 2048 lanes of 1 MiB, every lane against the
+    # host's BLAKE2s
+    lanes = "64,128" if ctx["quick"] else "256,1024,2048"
+    tune = tool_json(run_tool(ctx, "blake2s_tune", "--lanes", lanes))
+    for cell in tune["cells"]:
+        check(cell["lanes_checked"] == cell["lanes"],
+              f"blake2s_tune: {cell['lanes_checked']} of {cell['lanes']} "
+              "lanes checked")
+        log(f"[tools] on {card}: blake2s_tune {cell['lanes']} x 1 MiB: "
+            f"{cell['ms']:.3f} ms, {cell['gibs']:.1f} GiB/s, "
+            f"{cell['blocks']} blocks of {cell['threads']} threads, "
+            f"SM clock {cell['sm_clock_mhz']:.0f} MHz, chain "
+            f"{cell['chain_ms']:.3f} ms, bound {cell['bound_ms']:.3f} ms "
+            f"({cell['bound_by']}; {cell['share_of_bound']:.0%} of it), "
+            f"every lane = host BLAKE2s")
+    out["b2s_tune"] = tune
+    by_path["tools_b2s_tune"] = dict(NO_LAUNCHES, blake2s=tune["launches"])
+    # (b) the capture at full width: 256 x 1 MiB batches, RS(8,4), 2 GiB
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_tools_"))
+    cap = tool_json(run_tool(ctx, "device_capture", "--out",
+                             str(root / "capture.json")))
+    log(f"[tools] on {card}: device_capture: dispatch "
+        f"{cap['dispatch_rtt_ms']:.3f} ms, H2D {cap['link_h2d_reported_gibs']:.2f}"
+        f" GiB/s, round trip {cap['link_roundtrip_gibs']:.2f} GiB/s; fused "
+        f"scrub {cap['fused_scrub_gibs']:.2f} GiB/s at {cap['fused_scrub_lanes']}"
+        f" x {cap['fused_scrub_block']} B ("
+        + ", ".join(f"{r['lanes']} x {r['block']} B {r['gibs']:.2f}"
+                    for r in cap["fused_scrub_rungs"])
+        + f"); gf_apply {cap['gf_apply_gibs']:.1f}, gf_bitmatmul "
+        f"{cap['gf_bitmatmul_gibs']:.2f}, decode {cap['gf_decode_gibs']:.1f} "
+        f"GiB/s; hybrid window {cap['hybrid_window_gib']:.0f} GiB at "
+        f"{cap['hybrid_window_gibs']:.2f} GiB/s, device share "
+        f"{cap['hybrid_window_device_frac']:.3f} (gate "
+        f"{cap['hybrid_window_gate']}, link {cap['hybrid_window_link_gibs']})")
+    out["capture"] = cap
+    by_path["tools_capture"] = cap["launches"]
+    # (c) the transport, pool and link smokes on the card
+    for name, path in (("transport_smoke", "tools_transport"),
+                       ("pool_smoke", "tools_pool"),
+                       ("link_profile", "tools_link")):
+        res = tool_json(run_tool(ctx, name))
+        check(not res["synthetic"], f"{name} ran the synthetic link")
+        out[name] = res
+        by_path[path] = res["launches"]
+    t = out["transport_smoke"]
+    log(f"[tools] on {card}: transport_smoke: link {t['link_gibs']:.2f} GiB/s,"
+        f" device share {t['tpu_frac']:.2f}, {t['copies_per_block']:.2f} copies"
+        f" per block, {t['dispatches']} dispatches, {t['slot_overlaps']} "
+        "overlapping slot pairs, bytes-level calls "
+        f"{t['bytes_level_submissions']}")
+    p = out["pool_smoke"]
+    log(f"[tools] on {card}: pool_smoke: warm pass staged "
+        f"{p['warm_link_bytes']} B, hit {p['final']['hit_bytes']} + miss "
+        f"{p['final']['miss_bytes']} B, hit ratio {p['hit_ratio']:.2f}")
+    lp = out["link_profile"]
+    log(f"[tools] on {card}: link_profile: {len(lp['sweep']['cells'])} cells, "
+        f"sum_ok {lp['sweep']['sum_ok']}, probe {lp['link_gibs']:.2f} GiB/s, "
+        f"stages {json.dumps(lp['probe_stages'])}")
+    # (d) the dev cluster
+    try:
+        out["dev"] = tools_dev_cluster(ctx, root, by_path)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # (e) the chaos drill's partition and disk phases, every codec on the card
+    chaos = tool_json(run_tool(ctx, "chaos", "--quick", "--phases",
+                               "partition,disk", timeout=600), "CHAOS ")
+    check(chaos["ok"], f"tools: chaos failed: {json.dumps(chaos)[:2000]}")
+    for ph, st in chaos["phases"].items():
+        check(st["errors"] == 0, f"tools: chaos {ph}: {st['errors']} errors")
+        log(f"[tools] on {card}: chaos {ph}: {st['puts']} PUTs, {st['gets']} "
+            f"GETs, 0 errors, p50 {st.get('p50_ms')} ms, p99 "
+            f"{st.get('p99_ms')} ms")
+    out["chaos"] = chaos
+    by_path["tools_chaos"] = chaos["launches"]
+    torch.cuda.synchronize()
+    for path, counts in by_path.items():
+        log(f"[tools] launches on the {path} path: {json.dumps(counts)}")
+        for name in TOOLS_NEEDS[path]:
+            check(counts[name] > 0,
+                  f"kernel {name} was not launched on the {path} path")
+    out["launches_by_path"] = by_path
+    out["launches"] = {name: sum(c[name] for c in by_path.values())
+                       for name in CODEC_KERNELS}
+    out["seconds"] = dict(ctx["tool_s"])
+    return out
+
+
+def tools_dev_cluster(ctx, root: Path, by_path: dict) -> dict:
+    """tools/dev_cluster.sh and dev_configure.sh under a temporary
+    GARAGE_TPU_DEV_DIR, then smoke, metadata_smoke and cpu_profile, a
+    scrub on every node, device_timeline and incident_dump; each node's
+    `codec info` must show K1 and K4 launches; SIGTERM exits 0."""
+    card = ctx["card"]
+    base = root / "dev"
+    env = tool_env(ctx, GARAGE_TPU_DEV_DIR=str(base))
+    tools = ctx["repo"] / "garage_tpu_torch" / "tools"
+    log_path = root / "dev_cluster.log"
+    res = {}
+    t0 = time.perf_counter()
+    with open(log_path, "wb") as f:
+        script = subprocess.Popen(["bash", str(tools / "dev_cluster.sh")],
+                                  cwd=str(ctx["repo"]), env=env, stdout=f,
+                                  stderr=subprocess.STDOUT,
+                                  start_new_session=True)
+    try:
+        pids = {}
+        deadline = time.perf_counter() + 120
+        while len(pids) < DEV_NODES:
+            check(script.poll() is None, "tools: dev_cluster.sh exited: "
+                  + log_path.read_text(errors="replace")[-3000:])
+            check(time.perf_counter() < deadline, "tools: no daemon pids")
+            pids = {int(m.group(1)): int(m.group(2)) for m in re.finditer(
+                r"^node(\d) pid (\d+)$", log_path.read_text(errors="replace"),
+                re.M)}
+            time.sleep(0.2)
+        from garage_tpu_torch.tools.dev import DevCluster
+
+        dev = DevCluster(base)
+        for port in dev.s3_ports:
+            while True:
+                check(script.poll() is None, "tools: a daemon died: "
+                      + log_path.read_text(errors="replace")[-3000:])
+                check(time.perf_counter() < deadline,
+                      f"tools: S3 port {port} did not answer")
+                try:
+                    socket.create_connection(("127.0.0.1", port), 1).close()
+                    break
+                except OSError:
+                    time.sleep(0.2)
+        res["up_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        r = subprocess.run(["bash", str(tools / "dev_configure.sh")],
+                           cwd=str(ctx["repo"]), env=env, capture_output=True,
+                           text=True, timeout=300)
+        check(r.returncode == 0, f"tools: dev_configure.sh exited "
+              f"{r.returncode}: {r.stdout[-2000:]}{r.stderr[-2000:]}")
+        res["configure_s"] = time.perf_counter() - t1
+        res["smoke"] = tool_json(run_tool(ctx, "smoke", env=env))
+        res["metadata_smoke"] = tool_json(run_tool(ctx, "metadata_smoke",
+                                                   env=env))
+        res["cpu_profile"] = tool_json(run_tool(ctx, "cpu_profile", env=env))
+        # a scrub on every node, tranquility 0, to its end
+        dev_cli_all(ctx, env, base, "worker", "set", "scrub-tranquility", "0")
+        before = log_path.read_text(errors="replace").count("scrub complete")
+        t2 = time.perf_counter()
+        dev_cli_all(ctx, env, base, "repair", "scrub", "--cmd", "start")
+        while (log_path.read_text(errors="replace").count("scrub complete")
+               < before + DEV_NODES):
+            check(script.poll() is None, "tools: a daemon died in the scrub")
+            check(time.perf_counter() - t2 < 300, "tools: the dev cluster's "
+                  "scrubs did not complete in 300 s")
+            time.sleep(0.2)
+        res["scrub_s"] = time.perf_counter() - t2
+        tl_path = root / "timeline.json"
+        tl = tool_json(run_tool(ctx, "device_timeline", "-o", str(tl_path),
+                                env=env))
+        check(tl["events"] > 0 and tl["by_cat"].get("feeder", 0) > 0
+              and tl["by_cat"].get("transport", 0) > 0,
+              f"tools: node 0's timeline lacks the feeder's or the "
+              f"transport's events: {tl['by_cat']}")
+        res["timeline"] = tl
+        run_tool(ctx, "incident_dump", "--reason", "chip-smoke", env=env)
+        for i, text in enumerate(dev_cli_all(ctx, env, base, "codec",
+                                             "info")):
+            info = json.loads(text)
+            la = info["launches"]
+            check(la["blake2s"] > 0 and la["fused_scrub"] > 0,
+                  f"tools: dev node {i}: launches {json.dumps(la)}")
+            by_path[f"tools_dev_n{i}"] = la
+            res[f"n{i}"] = {"launches": la, "bytes": info["bytes"],
+                            "routes": info["feeder"]["routes"]}
+            log(f"[tools] on {card}: dev node {i} (hybrid): bytes by side "
+                f"{json.dumps(info['bytes'])}, launches {json.dumps(la)}")
+        for i, pid in sorted(pids.items()):
+            os.kill(pid, signal.SIGTERM)
+        try:
+            rc = script.wait(DAEMON_STOP_S + 15)
+        except subprocess.TimeoutExpired:
+            fail("tools: the dev cluster's daemons did not exit after "
+                 "SIGTERM")
+        text = log_path.read_text(errors="replace")
+        codes = {int(m.group(1)): int(m.group(2)) for m in re.finditer(
+            r"^node(\d) exited (\d+)$", text, re.M)}
+        check(rc == 0 and codes == {i: 0 for i in range(DEV_NODES)},
+              f"tools: dev daemons exited {codes} (script {rc}): "
+              f"{text[-3000:]}")
+        res["exit_codes"] = codes
+        log(f"[tools] on {card}: dev cluster up {res['up_s']:.1f} s, "
+            f"configured {res['configure_s']:.1f} s, smoke "
+            f"{res['smoke']['total_s']:.1f} s, metadata_smoke "
+            f"{res['metadata_smoke']['objects']} objects loaded in "
+            f"{res['metadata_smoke']['load_s']:.1f} s, cpu profile overhead "
+            f"{res['cpu_profile']['overhead_ratio']:.4f}, scrub of 3 nodes "
+            f"{res['scrub_s']:.1f} s, timeline {tl['events']} events "
+            f"{json.dumps(tl['by_cat'])}, SIGTERM exit codes {codes}")
+    finally:
+        if script.poll() is None:
+            os.killpg(script.pid, signal.SIGKILL)
+            script.wait()
+    return res
+
+
 def phase_tune(ctx) -> dict:
     """T1's path: the GF variant sweep of tools/gf_tune.py on one staged
     group, each cell checked against the numpy oracle and timed."""
@@ -4141,7 +4371,8 @@ def k1_chain_times(ctx, g_cycles: float) -> dict:
     `g_cycles` per G."""
     torch = ctx["torch"]
     from garage_tpu_torch.ops.cuda_blake2s import blake2s_batch
-    from garage_tpu_torch.tools.timing import SMS
+    from garage_tpu_torch.tools.timing import (SMS, b2s_message_ms,
+                                               time_kernel_clocked)
 
     da = ctx["k1_inputs"][0]
     lanes, cols = da.shape
@@ -4179,7 +4410,8 @@ def gf_times(ctx, reps: int) -> dict:
     from garage_tpu_torch.tools.timing import (ALU_LANES_PER_SM_CLOCK,
                                                FLUSH_BYTES,
                                                ISSUE_LANES_PER_SM_CLOCK, SMS,
-                                               ops_ms, queued_ms)
+                                               bound_ms, ops_ms, queued_ms,
+                                               time_kernel_clocked)
 
     groups, K_enc = ctx["gf_inputs"]
     res = {}
@@ -4240,10 +4472,15 @@ def gf_times(ctx, reps: int) -> dict:
 
 
 def phase_times(ctx, main: dict, prod: dict, split: dict, store: dict,
-                garage: dict, daemon: dict, chaos: dict, tune: dict) -> list:
+                garage: dict, daemon: dict, chaos: dict, tools: dict,
+                tune: dict) -> list:
     torch = ctx["torch"]
     from garage_tpu_torch.ops.cuda_blake2s import blake2s_batch, g_chain_cycles
-    from garage_tpu_torch.tools.timing import queued_ms
+    from garage_tpu_torch.tools.timing import (B2S_CHAIN_G_PER_CHUNK,
+                                               B2S_G_DEPTH, B2S_OPS_PER_CHUNK,
+                                               b2s_message_ms, b2s_work,
+                                               bound_ms, queued_ms,
+                                               time_kernel_clocked)
 
     da, dl, lens = ctx["k1_inputs"]
     codec, _, _, de = ctx["k4_inputs"]
@@ -4298,17 +4535,21 @@ def phase_times(ctx, main: dict, prod: dict, split: dict, store: dict,
     }
     extra = {
         "blake2s": {"sm_clock_mhz": b2s_mhz, "g_chain_cycles": g_cycles,
-                    "ms_by_lanes": {str(n): c["ms"] for n, c in chain.items()}},
+                    "ms_by_lanes": {str(n): c["ms"] for n, c in chain.items()},
+                    "tune_ms_by_lanes": {
+                        str(c["lanes"]): c["ms"]
+                        for c in tools["b2s_tune"]["cells"]}},
         "gf_apply": {"runtime_ms": gf["scrub"]["runtime_ms"],
                      "narrow_ms": gf["narrow"]["ms"],
                      "narrow_runtime_ms": gf["narrow"]["runtime_ms"],
                      "full_decode_ms": gf["full_decode"]["ms"],
                      "launches_by_body": gf_bodies_launched(
-                         main, prod, split, store, garage, daemon, chaos)},
+                         main, prod, split, store, garage, daemon, chaos,
+                         tools)},
         "fused_scrub": {},
     }
     rows, bounds = [], {}
-    paths = (main, prod, split, store, garage, daemon, chaos)
+    paths = (main, prod, split, store, garage, daemon, chaos, tools)
     by_path = {p: c for path in paths
                for p, c in path["launches_by_path"].items()}
     for name in CODEC_KERNELS:
@@ -4435,8 +4676,10 @@ def main() -> int:
            "scrub_lanes": 64 if args.quick else 256,
            "batches": 2 if args.quick else 4,
            "reps": 3 if args.quick else 5, "scrub_runs": 3,
-           "store_blocks": 128 if args.quick else 512,
-           "garage_blocks": 128 if args.quick else 512,
+           # store and garage at 256 MiB per node: the depth cut that
+           # keeps the whole script near 900 s of its 1200 s limit
+           "store_blocks": 128 if args.quick else 256,
+           "garage_blocks": 128 if args.quick else 256,
            "daemon_objects": 32 if args.quick else 256, "repo": repo,
            "chaos_nodes": 6 if args.quick else 24,
            "chaos_zones": 3 if args.quick else 4,
@@ -4448,39 +4691,36 @@ def main() -> int:
     log(f"[card] {torch.cuda.get_device_name(0)} ({card}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    phase_build(ctx)
-    phase_kernels(ctx)
-    main_out = phase_main(ctx)
+    phase_s = ctx["phase_s"] = {}
+
+    def run(name, phase, needs=()):
+        """phase(ctx), timed; every kernel in `needs` launched on its path."""
+        t = time.perf_counter()
+        out = phase(ctx)
+        phase_s[name] = time.perf_counter() - t
+        log(f"[phase] {name}: {phase_s[name]:.1f} s")
+        for kname in needs:
+            check(out["launches"][kname] > 0,
+                  f"kernel {kname} was not launched on the {name} path")
+        return out
+
+    run("build", phase_build)
+    run("kernels", phase_kernels)
+    main_out = run("main", phase_main)
     for name, n in main_out["launches"].items():
         check(n > 0, f"kernel {name} was not launched on the main path")
-    prod_out = phase_production(ctx)
-    for name in CODEC_KERNELS:
-        check(prod_out["launches"][name] > 0,
-              f"kernel {name} was not launched on the production path")
-    split_out = phase_split(ctx)
-    for name in CODEC_KERNELS:
-        check(split_out["launches"][name] > 0,
-              f"kernel {name} was not launched on the split path")
-    store_out = phase_store(ctx)
-    for name in CODEC_KERNELS:
-        check(store_out["launches"][name] > 0,
-              f"kernel {name} was not launched on the store path")
-    garage_out = phase_garage(ctx)
-    for name in CODEC_KERNELS:
-        check(garage_out["launches"][name] > 0,
-              f"kernel {name} was not launched on the garage path")
-    daemon_out = phase_daemon(ctx)
-    for name in CODEC_KERNELS:
-        check(daemon_out["launches"][name] > 0,
-              f"kernel {name} was not launched on the daemon path")
-    chaos_out = phase_chaos(ctx)
-    for name in CODEC_KERNELS:
-        check(chaos_out["launches"][name] > 0,
-              f"kernel {name} was not launched on the chaos path")
-    tune_out = phase_tune(ctx)
+    prod_out = run("production", phase_production, CODEC_KERNELS)
+    split_out = run("split", phase_split, CODEC_KERNELS)
+    store_out = run("store", phase_store, CODEC_KERNELS)
+    garage_out = run("garage", phase_garage, CODEC_KERNELS)
+    daemon_out = run("daemon", phase_daemon, CODEC_KERNELS)
+    chaos_out = run("chaos", phase_chaos, CODEC_KERNELS)
+    tools_out = run("tools", phase_tools, CODEC_KERNELS)
+    tune_out = run("tune", phase_tune)
     rows = phase_times(ctx, main_out, prod_out, split_out, store_out,
-                       garage_out, daemon_out, chaos_out, tune_out)
-    log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
+                       garage_out, daemon_out, chaos_out, tools_out, tune_out)
+    log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; by "
+        f"phase {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({
@@ -4488,7 +4728,8 @@ def main() -> int:
             "main": {k: v for k, v in main_out.items()},
             "production": prod_out, "split": split_out, "store": store_out,
             "garage": garage_out, "daemon": daemon_out, "chaos": chaos_out,
-            "tune": tune_out,
+            "tools": tools_out, "tune": tune_out, "phase_s": phase_s,
+            "host_op_us": ctx["host_op_us"],
             "summary": ctx["summary"], "quick": args.quick}, indent=1,
             default=float))
     print(json.dumps({"kernels": rows}))

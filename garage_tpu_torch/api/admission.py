@@ -773,25 +773,29 @@ class RemotePressureProbe:
             self._ids.pop(next(iter(self._ids)))
         self._ids[name] = bid
 
-    def pressure(self, bucket_name: Optional[str]) -> Tuple[float, str]:
-        """→ (max remote pressure, hex id of the hottest node); (0, "")
-        when the bucket is unknown or no peer has gossiped pressure."""
+    def pressure(self, bucket_name: Optional[str]
+                 ) -> Tuple[float, str, float]:
+        """→ (max remote pressure, hex id of the hottest node, seconds
+        until that node's next status exchange is due); (0, "", 0) when
+        the bucket is unknown or no peer has gossiped pressure."""
         if not bucket_name:
-            return 0.0, ""
+            return 0.0, "", 0.0
         bid = self._ids.get(bucket_name)
         if bid is None:
-            return 0.0, ""
+            return 0.0, "", 0.0
         sys_ = self.system
         try:
             nodes = sys_.ring.get_nodes(
                 bid, sys_.replication_mode.replication_factor)
         except Exception:  # noqa: BLE001 — ring not ready yet
-            return 0.0, ""
-        worst, who = 0.0, ""
+            return 0.0, "", 0.0
+        worst, hot = 0.0, None
         for n in nodes:
             if bytes(n) == bytes(sys_.id):
                 continue              # local pressure is the local gate's job
             p = sys_.peer_pressure(n)
             if p > worst:
-                worst, who = p, bytes(n).hex()[:16]
-        return worst, who
+                worst, hot = p, n
+        if hot is None:
+            return 0.0, "", 0.0
+        return worst, bytes(hot).hex()[:16], sys_.peer_status_due_in(hot)

@@ -8,6 +8,7 @@ encoding helpers.
 
 from __future__ import annotations
 
+import math
 import os
 import urllib.parse
 import xml.etree.ElementTree as ET
@@ -148,7 +149,8 @@ _SHED_MESSAGES = {
 
 async def admit_request(gate, request, tenant: Optional[str] = None,
                         remote_pressure: float = 0.0,
-                        bucket: Optional[str] = None):
+                        bucket: Optional[str] = None,
+                        remote_due_s: float = 0.0):
     """Admission-gate intake shared by the S3 and K2V servers →
     ``(token, None)`` when admitted (release the token when the request
     FULLY finishes, streaming included) or ``(None, response)`` when
@@ -156,7 +158,10 @@ async def admit_request(gate, request, tenant: Optional[str] = None,
     Retry-After and a minted RequestId.  Requests are classified into
     per-tenant WDRR queues by access key (fallback: bucket); sheds are
     per-tenant, never gate-wide.  Gate None (overload protection
-    unwired, e.g. bare test servers) admits everything."""
+    unwired, e.g. bare test servers) admits everything.  A
+    `remote_pressure` shed asks the client to wait at least
+    `remote_due_s`, the time until the hot node's next status exchange:
+    the gossiped reading that shed it cannot change sooner."""
     if gate is None:
         return None, None
     from .admission import classify_tenant
@@ -169,9 +174,12 @@ async def admit_request(gate, request, tenant: Optional[str] = None,
         return token, None
     msg = _SHED_MESSAGES.get(
         verdict, "node is past its admission watermarks; retry with backoff")
+    retry_after = gate.retry_after_hint()
+    if verdict == "remote_pressure":
+        retry_after = max(retry_after, min(math.ceil(remote_due_s),
+                                           gate.tun.retry_after_max))
     return None, error_response(
-        SlowDownError(msg, retry_after=gate.retry_after_hint()),
-        request.path)
+        SlowDownError(msg, retry_after=retry_after), request.path)
 
 
 def slo_service_latency(request, token, t_intake_ns: int

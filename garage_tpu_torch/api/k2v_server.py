@@ -99,14 +99,14 @@ class K2VApiServer:
         # Tenant-classified (access key, fallback bucket) with the
         # gossiped pressure of the bucket's placement nodes folded in,
         # exactly like the S3 front door.
-        remote_p = 0.0
+        remote_p, remote_due = 0.0, 0.0
         probe = getattr(self.garage, "admission_probe", None)
         seg = request.rel_url.raw_path.lstrip("/").split("/", 1)[0]
         import urllib.parse as _up
 
         bname = _up.unquote(seg) if seg else None
         if probe is not None:
-            remote_p, _hot = probe.pressure(bname)
+            remote_p, _hot, remote_due = probe.pressure(bname)
         # long polls legitimately outlive the default request budget:
         # give them their requested window on top of it.  The value is
         # client-controlled: only FINITE values in [0, 600] extend —
@@ -131,7 +131,8 @@ class K2VApiServer:
         t_intake_ns = _time.time_ns()
         with deadline_scope(budget):
             token, shed = await admit_request(
-                self.gate, request, remote_pressure=remote_p, bucket=bname)
+                self.gate, request, remote_pressure=remote_p, bucket=bname,
+                remote_due_s=remote_due)
             t_admitted_ns = _time.time_ns()
             if shed is not None:
                 if self.slo is not None:

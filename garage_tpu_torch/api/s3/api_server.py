@@ -214,7 +214,7 @@ class S3ApiServer:
         # saturated storage node sheds HERE, not three hops later.
         # Admission is decided once — an admitted request (streaming
         # bodies included) is never shed mid-transfer.
-        remote_p = 0.0
+        remote_p, remote_due = 0.0, 0.0
         vb = host_to_bucket(
             request.headers.get("Host", ""), self.root_domain)
         bname, key = parse_bucket_key(request.rel_url.raw_path, vb)
@@ -222,7 +222,7 @@ class S3ApiServer:
         # dispatch must never disagree about which bucket a request is
         request["s3_bucket_key"] = (bname, key)
         if self.probe is not None:
-            remote_p, _hot = self.probe.pressure(bname)
+            remote_p, _hot, remote_due = self.probe.pressure(bname)
         # the deadline scope arms the request's end-to-end budget —
         # tightened (never extended) by a client-supplied
         # X-Request-Timeout — BEFORE admission, so time queued in the
@@ -235,7 +235,8 @@ class S3ApiServer:
         t_intake_ns = _time.time_ns()
         with deadline_scope(budget):
             token, shed = await admit_request(
-                self.gate, request, remote_pressure=remote_p, bucket=bname)
+                self.gate, request, remote_pressure=remote_p, bucket=bname,
+                remote_due_s=remote_due)
             t_admitted_ns = _time.time_ns()
             if shed is not None:
                 self.error_counter += 1

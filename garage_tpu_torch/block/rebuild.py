@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -146,6 +147,11 @@ class RebuildScheduler(Worker):
         self.bytes_healed = 0
         self.runs = 0
         self._since_checkpoint = 0
+        # checkpoint writes, one at a time and never an older one over a
+        # newer one: the worker's go through a thread (_checkpoint_async)
+        self._save_lock = threading.Lock()
+        self._taken_seq = 0
+        self._saved_seq = 0
         # governor-coexistence evidence for the chaos drill: how often
         # the walk paused to pace, and the lowest throttle ratio seen
         self.paced_sleeps = 0
@@ -235,20 +241,45 @@ class RebuildScheduler(Worker):
             len(self._pending))
         return True
 
-    def _checkpoint(self, force: bool = False) -> None:
+    def _take_checkpoint(self, force: bool) -> Optional[tuple]:
+        """Count one checkpoint opportunity; (sequence number, the
+        checkpoint of the state now) when one is due, else None."""
         self._since_checkpoint += 1
         if not force and self._since_checkpoint < CHECKPOINT_EVERY:
-            return
+            return None
         self._since_checkpoint = 0
         if self.persister is None:
-            return
-        self.persister.save(RebuildCheckpoint(
+            return None
+        self._taken_seq += 1
+        return self._taken_seq, RebuildCheckpoint(
             active=bool(self._pending), ring_digest=self.ring_digest,
             pending=list(self._pending), cursor=self._cursor or b"",
             partitions_done=self.partitions_done,
             partitions_total=self.partitions_total,
             codewords=self.codewords_rebuilt, blocks=self.blocks_healed,
-            bytes_healed=self.bytes_healed, parked=list(self._parked)))
+            bytes_healed=self.bytes_healed, parked=list(self._parked))
+
+    def _save(self, seq: int, chk: RebuildCheckpoint) -> None:
+        with self._save_lock:
+            if seq > self._saved_seq:
+                self.persister.save(chk)
+                self._saved_seq = seq
+
+    def _checkpoint(self, force: bool = False) -> None:
+        taken = self._take_checkpoint(force)
+        if taken is not None:
+            self._save(*taken)
+
+    async def _checkpoint_async(self, force: bool = False) -> None:
+        """_checkpoint for the worker: the state is taken on the event
+        loop and written (temporary file, fsync, rename, fsync of the
+        directory) in a thread.  On a busy disk those fsyncs take most of
+        a second (PERF.md: 0.47-0.78 s on the H100 host's disk), and on
+        the loop they stall every node that shares it past the drills'
+        RPC timeouts."""
+        taken = self._take_checkpoint(force)
+        if taken is not None:
+            await asyncio.to_thread(self._save, *taken)
 
     def _observe(self) -> None:
         if self.m_done is not None:
@@ -370,7 +401,7 @@ class RebuildScheduler(Worker):
             # so owns() no longer claims them and resync takes over
             for hb in parked:
                 self.resync.put_to_resync(Hash(hb), 30.0, source="rebuild")
-            self._checkpoint(force=True)
+            await self._checkpoint_async(force=True)
             if not self._pending:
                 logger.info(
                     "rebuild run complete: %d/%d partitions, %d codewords, "
@@ -378,7 +409,7 @@ class RebuildScheduler(Worker):
                     self.partitions_total, self.codewords_rebuilt,
                     self.blocks_healed, self.bytes_healed)
         else:
-            self._checkpoint()
+            await self._checkpoint_async()
         st = self.status()
         st.progress = (
             f"{self.partitions_done}/{self.partitions_total} partitions")

@@ -10,8 +10,11 @@ either package opens in the other.
 
 The library is built by the port's one native recipe, ``ops/native.py``
 (the host C++ compiler, into ``build/native/`` at the root of the
-checkout, at first use).  A library that cannot be built or loaded
-raises DbError: no other engine is opened in its place.
+checkout, at first use).  ``GARAGE_NATIVE_SUFFIX=.asan`` or ``.tsan``
+selects its sanitizer build, as for every native library of the port.
+A library that cannot be built or loaded raises DbError: no other
+engine, and no plain build of a sanitizer variant, is opened in its
+place.
 
 Every call into the library holds the adapter lock and first checks
 that the engine is still open: a call after `close` (a crashed node's

@@ -22,6 +22,17 @@ callers fall back to numpy (GF) / hashlib (BLAKE2s) when a kernel is
 unavailable, e.g. on a host without a C++ compiler, and the layout
 optimizer to its Python loop; the metadata engine has no fallback
 (``require_native`` raises).
+
+Sanitizer builds: ``GARAGE_NATIVE_SUFFIX=.asan`` (or ``.tsan``) selects
+an AddressSanitizer (ThreadSanitizer) build of every library,
+``lib<name>-<hash>.asan.so``, with the reference Makefile's flags
+(``-fsanitize=address|thread -fno-omit-frame-pointer -g -O1``).  A
+variant that cannot be built or loaded raises, from ``load_native`` too:
+no plain library and no Python fallback ever stands in for it.  Python
+loads a sanitized library only with the sanitizer's runtime preloaded::
+
+    GARAGE_NATIVE_SUFFIX=.asan ASAN_OPTIONS=detect_leaks=0 \
+        LD_PRELOAD=$(gcc -print-file-name=libasan.so) python ...
 """
 
 from __future__ import annotations
@@ -55,27 +66,61 @@ _FLAGS = {
 }
 _LIB_NAMES = {"gf256": "libgf256", "blake2s_mb": "libblake2smb",
               "logdb": "liblogdb", "flowcost": "libflowcost"}
+# the sanitizer variants (garage_tpu/native/Makefile's asan and tsan
+# targets): the sanitizer's flags, then the library's own, where only the
+# GF kernel keeps -march=native and OpenMP
+SUFFIX_ENV = "GARAGE_NATIVE_SUFFIX"
+_SANITIZERS = {
+    ".asan": ["-fsanitize=address", "-fno-omit-frame-pointer", "-g", "-O1"],
+    ".tsan": ["-fsanitize=thread", "-fno-omit-frame-pointer", "-g", "-O1"],
+}
+_SAN_FLAGS = {
+    "gf256": ["-march=native", "-fPIC", "-Wall", "-fopenmp", "-shared"],
+    "blake2s_mb": ["-fPIC", "-Wall", "-shared"],
+    "logdb": ["-fPIC", "-Wall", "-shared"],
+    "flowcost": ["-fPIC", "-Wall", "-shared"],
+}
 
 _BUILD_LOCK = threading.Lock()
-_libs: Dict[str, Optional[ctypes.CDLL]] = {}
-_errors: Dict[str, str] = {}  # why a library could not be built or loaded
+# by (name, suffix): the library, or None when it could not be built
+_libs: Dict[tuple, Optional[ctypes.CDLL]] = {}
+_errors: Dict[tuple, str] = {}  # why a library could not be built or loaded
 
 
-def _lib_path(name: str) -> Path:
+def variant() -> str:
+    """The build variant GARAGE_NATIVE_SUFFIX selects: "" (plain),
+    ".asan" or ".tsan"; ValueError for any other value."""
+    suffix = os.environ.get(SUFFIX_ENV, "")
+    if suffix and suffix not in _SANITIZERS:
+        raise ValueError(f"{SUFFIX_ENV}={suffix!r}: expected one of "
+                         f"{sorted(_SANITIZERS)} or nothing")
+    return suffix
+
+
+def flags(name: str, suffix: str = "") -> List[str]:
+    """The compiler flags of native/<name>.cpp in variant `suffix`."""
+    if not suffix:
+        return _FLAGS[name]
+    return _SANITIZERS[suffix] + _SAN_FLAGS[name]
+
+
+def _lib_path(name: str, suffix: str = "") -> Path:
+    """Where variant `suffix` of native/<name>.cpp is built: the name
+    carries a hash of the source, the flags and the host."""
     src = (NATIVE_SRC / f"{name}.cpp").read_bytes()
-    key = src + " ".join(_FLAGS[name]).encode() + platform.node().encode()
+    key = src + " ".join(flags(name, suffix)).encode() + platform.node().encode()
     tag = hashlib.sha256(key).hexdigest()[:12]
-    return BUILD_DIR / f"{_LIB_NAMES[name]}-{tag}.so"
+    return BUILD_DIR / f"{_LIB_NAMES[name]}-{tag}{suffix}.so"
 
 
-def _build(name: str, out: Path) -> None:
+def _build(name: str, suffix: str, out: Path) -> None:
     cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         raise RuntimeError("no C++ compiler found")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     try:
-        subprocess.run([cxx, *_FLAGS[name], "-o", str(tmp),
+        subprocess.run([cxx, *flags(name, suffix), "-o", str(tmp),
                         str(NATIVE_SRC / f"{name}.cpp")],
                        check=True, capture_output=True, timeout=300)
         os.replace(tmp, out)
@@ -84,26 +129,34 @@ def _build(name: str, out: Path) -> None:
 
 
 def load_native(name: str) -> Optional[ctypes.CDLL]:
-    """The loaded library for native/<name>.cpp, built first if needed;
-    None when it cannot be built or loaded here."""
+    """The loaded library for native/<name>.cpp in the variant
+    GARAGE_NATIVE_SUFFIX selects, built first if needed.  None when the
+    plain library cannot be built or loaded here; a sanitizer variant
+    that cannot be raises RuntimeError."""
+    suffix = variant()
+    key = (name, suffix)
     with _BUILD_LOCK:
-        if name in _libs:
-            return _libs[name]
-        lib = None
-        try:
-            out = _lib_path(name)
-            if not out.exists():
-                _build(name, out)
-            lib = ctypes.CDLL(str(out))
-        except subprocess.CalledProcessError as e:
-            _errors[name] = (f"{e.cmd[0]} exited {e.returncode}: "
-                             f"{e.stderr.decode(errors='replace')[-400:]}")
-        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
-            _errors[name] = str(e)
-        if lib is None:
-            logger.debug("native %s unavailable: %s", name, _errors[name])
-        _libs[name] = lib
-        return lib
+        if key not in _libs:
+            lib = None
+            try:
+                out = _lib_path(name, suffix)
+                if not out.exists():
+                    _build(name, suffix, out)
+                lib = ctypes.CDLL(str(out))
+            except subprocess.CalledProcessError as e:
+                _errors[key] = (f"{e.cmd[0]} exited {e.returncode}: "
+                                f"{e.stderr.decode(errors='replace')[-400:]}")
+            except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+                _errors[key] = str(e)
+            if lib is None:
+                logger.debug("native %s%s unavailable: %s", name, suffix,
+                             _errors[key])
+            _libs[key] = lib
+        if _libs[key] is None and suffix:
+            raise RuntimeError(f"cannot build or load the {suffix} variant "
+                               f"of {_LIB_NAMES[name]} into {BUILD_DIR}: "
+                               f"{_errors.get(key)}")
+        return _libs[key]
 
 
 def require_native(name: str) -> ctypes.CDLL:
@@ -113,7 +166,7 @@ def require_native(name: str) -> ctypes.CDLL:
     lib = load_native(name)
     if lib is None:
         raise RuntimeError(f"cannot build or load {_LIB_NAMES[name]} into "
-                           f"{BUILD_DIR}: {_errors.get(name)}")
+                           f"{BUILD_DIR}: {_errors.get((name, ''))}")
     return lib
 
 

@@ -771,6 +771,14 @@ class System:
             return 0.0
         return float(st.governor_pressure)
 
+    def peer_status_due_in(self, nid) -> float:
+        """Seconds until `nid`'s next status exchange is due, the soonest
+        its gossiped pressure can change; 0 when unknown or overdue."""
+        at = self._status_at.get(FixedBytes32(bytes(nid)))
+        if at is None:
+            return 0.0
+        return max(0.0, at + STATUS_EXCHANGE_INTERVAL - time.monotonic())
+
     # --- fleet health (fail-slow detection; utils/health_score.py) ---
 
     def _health_note(self, node, cls: str, seconds: float) -> None:

@@ -2,8 +2,9 @@
 
 The port's copy of the reference harness's client (``bench._S3``): one
 SigV4-signed aiohttp request per call against an S3 API server on
-127.0.0.1, signed with the port's ``api/signature.py``.  SimCluster's
-traffic driver and drills use it.
+127.0.0.1, signed with the port's ``api/signature.py``, over an aiohttp
+session the caller owns.  SimCluster's traffic driver, the drills and the
+dev cluster's smoke tools use it.
 """
 
 from __future__ import annotations
@@ -30,14 +31,17 @@ class S3Client:
         self.retry_after_cap = retry_after_cap
         self._backoff_until = 0.0
 
-    async def req(self, method, path, body=b"", query=()):
+    async def req(self, method, path, body=b"", query=(), headers=None):
+        """(status, body, response headers) of one signed request; `path`
+        is the wire form and is signed verbatim, `headers` are sent (and
+        signed) beside the host header."""
         import yarl
 
         if self.honor_retry_after:
             wait = self._backoff_until - time.monotonic()
             if wait > 0:
                 await asyncio.sleep(min(wait, self.retry_after_cap))
-        headers = {"host": f"127.0.0.1:{self.port}"}
+        headers = dict(headers or {}, host=f"127.0.0.1:{self.port}")
         headers.update(sign_request(
             self.kid, self.secret, "garage", method, path, list(query),
             headers, body, path_is_raw=True,

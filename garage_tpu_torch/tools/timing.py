@@ -15,15 +15,22 @@ result is the median of those differences, so a host stall that lets the
 queue run dry inside one window does not move it.  ``chip_smoke.py`` and
 ``tools/gf_tune.py`` time with it.
 
-``ops_ms`` is the least time of integer work on the card's SMs.
+``ops_ms`` is the least time of integer work on the card's SMs;
+``bound_ms`` the least time of a function (bytes, operations, and its
+longest dependent chain); ``b2s_work`` and ``b2s_message_ms`` BLAKE2s's
+work and its longest message's chain; ``time_kernel_clocked`` a kernel's
+time with the SM clock sampled beside it.
 """
 
 from __future__ import annotations
 
+import select
 import statistics
+import subprocess
 import time
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA's data sheet): 3.35 TB/s HBM3, 132 SMs at up to
@@ -35,6 +42,7 @@ FLUSH_BYTES = 128 << 20         # two halves, each more than the L2
 # timed windows queued behind one sleep kernel: well inside the depth of a
 # stream's launch queue, past which the host would block in a launch
 TIMED_BATCH = 64
+SMI_START_S = 30.0  # longest wait for nvidia-smi's first clock sample
 # Integer rates.  Only the SM's INT32 ALU pipe runs xors, rotates, byte
 # permutes and logic (LOP3, SHF, PRMT): 64 lanes per SM per clock (the
 # Hopper architecture white paper: 64 INT32 beside 128 FP32 lanes per SM;
@@ -48,6 +56,24 @@ TIMED_BATCH = 64
 # 700 W (PERF.md), below 64.
 ALU_LANES_PER_SM_CLOCK = 64
 ISSUE_LANES_PER_SM_CLOCK = 128
+
+# BLAKE2s per 64-byte chunk, in the fewest 32-bit instructions: a G is 4
+# three-input adds (a + b + m is one IADD3), 4 xors and 4 rotates (one
+# funnel shift each), 12 in all; 80 G, the counter and flag words (an xor
+# and a select), and the 8 three-input xors of the feed-forward.  All but
+# the adds are ALU-only.
+B2S_OPS_PER_CHUNK = 80 * 12 + 2 + 8
+B2S_ALU_OPS_PER_CHUNK = 80 * 8 + 2 + 8
+# ... and its dependent chain (csrc/blake2s.cu:42-94): in a G each step
+# needs the one before (IADD3, then LOP3 xor and SHF rotate of d, IADD3
+# of c, LOP3 and SHF of b, and again: 12); the 4 column G of a round are
+# independent of each other but the 4 diagonal G read their outputs, so a
+# round is 2 G deep; 10 rounds and the feed-forward's one three-input xor
+# (h ^= v[i] ^ v[i + 8]), on which the next chunk's first G waits: 20 G
+# and one instruction, 241 dependent instructions per chunk.  Each costs
+# the latency the chain probe measures on the card (g_chain_cycles / 12).
+B2S_G_DEPTH = 12
+B2S_CHAIN_G_PER_CHUNK = 10 * 2
 
 
 def ops_ms(alu_ops: float, ops: float) -> float:
@@ -133,3 +159,65 @@ def queued_ms(fn: Callable[[], object], reps: int,
     if before is None:
         return sum(times[0]) / reps
     return statistics.median(p - q for p, q in zip(*times))
+
+
+def bound_ms(nbytes: float, alu_ops: float, ops: float, dep_ms: float = 0.0):
+    """(bound in ms, "bytes" or "operations"): the larger of the bytes
+    over the HBM rate and the operations' least time, itself the larger of
+    their issue (ops_ms) and their longest dependent chain (`dep_ms`)."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = max(ops_ms(alu_ops, ops), dep_ms)
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def b2s_work(lengths: np.ndarray, cols: int):
+    """(bytes, ALU-only instructions, instructions) BLAKE2s must do for
+    these lanes: each lane's chunks up to its own end, read once, and its
+    32-byte digest written."""
+    nch = np.minimum(np.maximum((lengths.astype(np.int64) + 63) // 64, 1),
+                     cols // 64)
+    chunks = int(nch.sum())
+    return (chunks * 64 + lengths.size * (4 + 32),
+            chunks * B2S_ALU_OPS_PER_CHUNK, chunks * B2S_OPS_PER_CHUNK)
+
+
+def b2s_message_ms(lengths: np.ndarray, cols: int, g_cycles: float,
+                   clock_hz: float):
+    """(chain ms, issue ms): two least times of the longest message, which
+    one thread hashes alone, so no parallel lane can shorten them.  Its
+    chunks, each a dependent chain of B2S_CHAIN_G_PER_CHUNK G and one xor
+    at `g_cycles` per G (the chain probe's measure); and its chunks'
+    B2S_OPS_PER_CHUNK instructions, which its warp issues at one per
+    clock at most.  At the SM clock `clock_hz`."""
+    chain = int(min(max((int(lengths.max()) + 63) // 64, 1), cols // 64))
+    per_chunk = (B2S_CHAIN_G_PER_CHUNK + 1 / B2S_G_DEPTH) * g_cycles
+    return (chain * per_chunk / clock_hz * 1e3,
+            chain * B2S_OPS_PER_CHUNK / clock_hz * 1e3)
+
+
+def time_kernel_clocked(torch, fn, flush=None):
+    """(mean ms of fn() on the card, median SM clock in MHz): queued_ms
+    over enough calls for 400 ms of kernel time, with nvidia-smi sampling
+    clocks.sm every 20 ms beside it.  The timing starts once nvidia-smi
+    has printed its first sample (its start-up can outlast the 400 ms on
+    a busy host); that sample, taken before the calls, counts only when
+    none came during them."""
+    est = queued_ms(fn, 2, flush)
+    reps = max(3, int(400.0 / max(est, 1e-3)) + 1)
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm",
+                            "--format=csv,noheader,nounits", "-lms", "20"],
+                           stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                           text=True)
+    first = ""
+    try:
+        if select.select([smi.stdout], [], [], SMI_START_S)[0]:
+            first = smi.stdout.readline()
+        ms = queued_ms(fn, reps, flush)
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=60)
+    samples = [float(x) for x in (out.split() or first.split())
+               if x.replace(".", "").isdigit()]
+    if not samples:
+        raise RuntimeError("nvidia-smi gave no clocks.sm sample")
+    return ms, float(np.median(samples))

@@ -387,7 +387,8 @@ def test_native_build_stays_out_of_the_packages():
         path = native._lib_path(name)
         assert (lib is None) or (path.exists() and path.parent == native.BUILD_DIR)
     assert sorted(p.name for p in pkg_native.iterdir()) == before == [
-        "blake2s_mb.cpp", "flowcost.cpp", "gf256.cpp", "logdb.cpp"]
+        "blake2s_mb.cpp", "flowcost.cpp", "gf256.cpp", "logdb.cpp",
+        "tsan.supp"]
 
 
 def test_codec_info_reports_launches_and_feeder_routes():

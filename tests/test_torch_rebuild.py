@@ -10,7 +10,7 @@ fakes of tests/test_repair_plan.py and tests/test_rebuild.py:
     through `owns`, parks failures with source "rebuild", re-arms on a
     late ref, and resumes from a checkpoint — including one the
     reference's scheduler wrote (the checkpoint format is the
-    reference's);
+    reference's); the worker writes its checkpoints off the event loop;
   - a row that merely moved (a live node still holds it) is left to
     resync's copy, not decoded.
 """
@@ -269,6 +269,34 @@ async def test_scheduler_heals_every_lost_block_once_like_reference(tmp_path):
         out[P.name] = (mgr.writes, mgr.heals, s.blocks_healed,
                        s.codewords_rebuilt, _checkpoint_bytes(d))
     assert out["garage_tpu"] == out["garage_tpu_torch"]
+
+
+async def test_worker_checkpoints_are_written_off_the_event_loop(tmp_path):
+    """The port's repair (ROADMAP Queue 3): the worker's checkpoint writes
+    (two fsyncs each) run in a thread, so a slow disk never stalls the
+    loop that every in-process node shares; the file is the reference's
+    either way."""
+    import threading
+
+    mgr, resync, keys, datas, make = fixture(PORT, tmp_path)
+    s = make()
+    writers = []
+    save = s.persister.save
+
+    def traced(chk):
+        writers.append(threading.get_ident())
+        save(chk)
+
+    s.persister.save = traced
+    loop_thread = threading.get_ident()
+    s.node_lost([0x42], b"ring-a")
+    while s._pending:
+        await s.work()
+    assert writers[0] == loop_thread        # the layout change's own write
+    assert len(writers) >= 2
+    assert all(t != loop_thread for t in writers[1:])
+    chk = s.persister.load()
+    assert not chk.active and chk.partitions_done == 1
 
 
 async def test_scheduler_owns_dedupes_resync(tmp_path):
