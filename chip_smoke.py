@@ -18,9 +18,11 @@ Phases, each fatal on any mismatch or exception:
                   and RS(4,2)) and for two it is not, each through its
                   instantiation and its runtime-(k, r) body, in both of
                   the reference's regimes (padded S4 < 2048 and >= 2048)
-                  and at odd S4; the fused scrub at the
-                  scrub's shape against one run of its plain version, whose
-                  digests also hold K1's result at that shape; every
+                  and at odd S4; K1 and the fused scrub against one run
+                  of the fused scrub's plain version at 256 lanes of 64
+                  KiB rows (edge lengths scaled), and both kernels at the
+                  scrub's shape against hashlib on every lane, its
+                  verdicts and the numpy parity; every
                   variant of the GF tuning kernel (T1) at every tile and
                   both (k, r) it is built for, on 1 MiB blocks as its
                   sweep stages them, and two launches it must refuse (a
@@ -173,6 +175,17 @@ Phases, each fatal on any mismatch or exception:
                   SIGTERM ends each daemon with exit code 0; (e) tools/
                   chaos.py --quick --phases partition,disk, every codec on
                   the card, zero client errors.
+  8c. bench     — the benchmark's harness (tools/bench.py) in a child
+                  interpreter (this script with --bench-child): the
+                  headline at full width (the serial hashlib baseline, the
+                  CPU floor, RS(8,4) repair decodes through K3,
+                  make_codec("hybrid")'s 2 GiB window with the K4/K2/K3
+                  rates of a --device-phase process), then --put-phase,
+                  --rs-put-phase and --degraded-phase, each in its own
+                  process through the bench's run_phase_subprocess at the
+                  reference's shapes; no <phase>_error, every verdict ok,
+                  every RS(4,2) block covered, every degraded object read
+                  back bit-exact with blocks decoded.
   9. tune       — T1's path: tools/gf_tune.py's sweep of the GF kernel's
                   loop orders x tiles, each cell checked and timed, with
                   each variant's SASS census and the issue bound it
@@ -201,6 +214,7 @@ restarted process); chaos's rebuild / replay / scrub / revive, whose
 launches are also attributed to nodes through their codecs;
 the tools' own processes (blake2s_tune, device_capture, the three
 smokes, each dev node's `codec info`, chaos), each counting from 0;
+the bench's headline, device phase, repair and three phase processes;
 and read just after it; each path must have launched every kernel it
 runs, and the GF kernel only the body each path needs (GF_BODIES).
 The sizes are the reference configuration's defaults: 1 MiB
@@ -241,6 +255,7 @@ SEED = 20261016
 MIB = 1 << 20
 CODEC_KERNELS = ("blake2s", "gf_apply", "fused_scrub")
 HOST_OPS = 20000  # one-element ops timed for the host's dispatch cost
+PLAIN_ROW = 64 * 1024  # the row length the plain K1 and K4 are held at
 KERNELS = CODEC_KERNELS + ("gf_tune",)
 
 
@@ -302,6 +317,14 @@ def random_rows(rng, lengths, cols) -> np.ndarray:
 
 
 # --- timing --------------------------------------------------------------------
+
+
+def scrub_lengths(blk: int, lanes: int) -> np.ndarray:
+    """A scrub batch's lane lengths at `blk`-byte rows: the edge lengths
+    (empty, one byte, around one 64-byte chunk, a 700,001 B block scaled
+    to the row) first, then full rows."""
+    edge = [0, 1, 63, 64, 65, 1000, min(16001, blk), 700001 * blk // MIB]
+    return np.asarray(edge + [blk] * (lanes - len(edge)), np.int32)
 
 
 def time_host(torch, fn):
@@ -416,14 +439,14 @@ def phase_kernels(ctx) -> None:
     # lengths first, expected digests from hashlib with two lanes planted
     # wrong
     lanes = ctx["scrub_lanes"]
-    edge = [0, 1, 63, 64, 65, 1000, 16001, 700001 * blk // MIB]
-    lens = np.asarray(edge + [blk] * (lanes - len(edge)), np.int32)
+    lens = scrub_lengths(blk, lanes)
     arr = random_rows(rng, lens, blk)
     da = torch.from_numpy(arr).to(dev)
     dl = torch.from_numpy(lens).to(dev)
-    expected = np.stack([np.frombuffer(hashlib_digest(arr[i, :n]), "<u4")
-                         for i, n in enumerate(lens)]).astype(np.uint32)
+    digests = np.stack([np.frombuffer(hashlib_digest(arr[i, :n]), "<u4")
+                        for i, n in enumerate(lens)]).astype(np.uint32)
     planted = [3, lanes - 2]
+    expected = digests.copy()
     expected[planted] ^= np.uint32(1)
     de = torch.from_numpy(expected.view(np.int32)).to(dev)
     K_enc = consts_from_numpy(mat, dev)
@@ -437,7 +460,21 @@ def phase_kernels(ctx) -> None:
     log(f"[kernels] host dispatch: {HOST_OPS} one-element ops on the card "
         f"in {ops_ms:.1f} ms, {ctx['host_op_us']:.2f} us each")
 
-    # the fused scrub's plain version, run once on these inputs: its
+    # the plain versions' inputs: the same lanes at PLAIN_ROW-byte rows,
+    # edge lengths scaled to them (the plain BLAKE2s costs host ops per
+    # 64-byte chunk of the longest row: at 1 MiB it took two minutes)
+    prow = min(blk, PLAIN_ROW)
+    plens = scrub_lengths(prow, lanes)
+    parr = random_rows(rng, plens, prow)
+    pda = torch.from_numpy(parr).to(dev)
+    pdl = torch.from_numpy(plens).to(dev)
+    pexpected = np.stack([np.frombuffer(hashlib_digest(parr[i, :n]), "<u4")
+                          for i, n in enumerate(plens)]).astype(np.uint32)
+    pexpected[planted] ^= np.uint32(1)
+    pde = torch.from_numpy(pexpected.view(np.int32)).to(dev)
+    ctx["plain_shape"] = [lanes, prow]
+
+    # the fused scrub's plain version, run once on those inputs: its
     # digests are K1's plain result too, and its hash step is timed for
     # K1's plain time (fused_scrub_plain's composition, hash step timed)
     hash_ms = []
@@ -448,12 +485,19 @@ def phase_kernels(ctx) -> None:
         return out
 
     (p_h, p_ok, p_bad, p_par), fused_plain_ms = time_host(
-        torch, lambda: scrub_composition(da, dl, de, K_enc, 8,
+        torch, lambda: scrub_composition(pda, pdl, pde, K_enc, 8,
                                          timed_plain_hash, gf_apply_plain))
     b2s_plain_ms = hash_ms[0]
-    b2s_err = b2s_check("scrub shape", arr, lens, blake2s_batch(da, dl), p_h)
-    log(f"[kernels] blake2s scrub shape: B={lanes} row={blk} B bit-exact vs "
-        f"plain version and hashlib (plain {b2s_plain_ms:.1f} ms)")
+    b2s_err = b2s_check("plain shape", parr, plens, blake2s_batch(pda, pdl),
+                        p_h)
+    log(f"[kernels] blake2s: B={lanes} row={prow} B bit-exact vs plain "
+        f"version and hashlib (plain {b2s_plain_ms:.1f} ms)")
+    # K1 at the scrub's shape against hashlib on every lane
+    got = blake2s_batch(da, dl).cpu().numpy().view(np.uint32)
+    check(np.array_equal(got, digests), "blake2s kernel != hashlib at the "
+          f"scrub shape (lanes {np.flatnonzero((got != digests).any(1))})")
+    log(f"[kernels] blake2s scrub shape: B={lanes} row={blk} B, every lane "
+        "= hashlib")
     # K1 at a lane count that is not a multiple of 128 (and of 32)
     odd = np.asarray([0, 1, 63, 64, 65, 1000, 16001] + list(
         rng.integers(0, 16002, 131 - 7)), np.int32)
@@ -514,10 +558,13 @@ def phase_kernels(ctx) -> None:
     log(f"[kernels] gf_apply encode RS(8,4) scrub shape ({lanes // 8}, 8, "
         f"{blk // 4}) bit-exact (plain {gf_plain_ms:.1f} ms)")
 
-    # K4: the fused scrub over the same batch against its plain version's
-    # four outputs, and against hashlib's verdicts and the numpy parity
+    # K4: the fused scrub against its plain version's four outputs on the
+    # plain inputs, and at the scrub's shape against hashlib's digests and
+    # verdicts and the numpy parity
     codec = CudaCodec(CodecParams(rs_data=8, rs_parity=4), device=dev)
-    h, ok, bad, parity = codec.fused_scrub(da, dl, de)
+    want_ok = np.ones(lanes, bool)
+    want_ok[planted] = False
+    h, ok, bad, parity = codec.fused_scrub(pda, pdl, pde)
     fused_err = max(
         max_abs_err(h.cpu().numpy().view(np.uint32),
                     p_h.cpu().numpy().view(np.uint32)),
@@ -525,14 +572,21 @@ def phase_kernels(ctx) -> None:
         abs(int(bad.item()) - int(p_bad.item())),
         max_abs_err(parity.cpu().numpy(), p_par.cpu().numpy()))
     check(fused_err == 0, "fused scrub != its plain version")
-    want_ok = np.ones(lanes, bool)
-    want_ok[planted] = False
+    check(np.array_equal(ok.cpu().numpy(), want_ok)
+          and int(bad.item()) == len(planted),
+          "fused scrub ok/count wrong (plain shape)")
+    h, ok, bad, parity = codec.fused_scrub(da, dl, de)
+    check(np.array_equal(h.cpu().numpy().view(np.uint32), digests),
+          "fused scrub digests != hashlib at the scrub shape")
     check(np.array_equal(ok.cpu().numpy(), want_ok)
           and int(bad.item()) == len(planted), "fused scrub ok/count wrong")
     check(np.array_equal(parity.cpu().numpy(), want), "fused scrub parity wrong")
-    log(f"[kernels] fused scrub ({lanes} x {blk} B, {len(planted)} planted "
+    log(f"[kernels] fused scrub ({lanes} x {prow} B, {len(planted)} planted "
         "mismatches) bit-exact vs its plain version (digests, ok, count, "
-        f"parity), hashlib and numpy GF(2^8) (plain {fused_plain_ms:.1f} ms)")
+        f"parity; plain {fused_plain_ms:.1f} ms); at {lanes} x {blk} B "
+        "digests = hashlib, ok and count as planted, parity = numpy "
+        "GF(2^8)")
+    del pda, pdl, pde, p_h, p_ok, p_par
 
     # T1: every variant of the sweep's kernel at every tile, at both (k, r)
     # it is built for, on 1 MiB blocks folded flat as the sweep stages
@@ -4326,6 +4380,134 @@ def tools_dev_cluster(ctx, root: Path, by_path: dict) -> dict:
     return res
 
 
+BENCH_CHILD_TIMEOUT_S = 600
+BENCH_PHASES = ("--put-phase", "--rs-put-phase", "--degraded-phase")
+BENCH_NEEDS = {"bench_headline": ("blake2s", "fused_scrub"),
+               "bench_device": CODEC_KERNELS,
+               "bench_repair": ("gf_apply",),
+               "bench_put": ("blake2s",),
+               "bench_rs_put": ("blake2s", "gf_apply"),
+               "bench_degraded": ("gf_apply",)}
+
+
+def phase_bench(ctx) -> dict:
+    """The benchmark's harness on the card (tools/bench.py), in a child
+    interpreter (this script with --bench-child): the headline at full
+    width (the serial hashlib baseline, the CPU floor, RS(8,4) repair
+    decodes, make_codec("hybrid")'s 2 GiB window with the device-resident
+    rungs of a --device-phase process), then --put-phase, --rs-put-phase
+    and --degraded-phase through the bench's run_phase_subprocess, each in
+    a process of its own at the reference's shapes.  Fails on any
+    <phase>_error, a scrub verdict that is not ok, an uncovered RS(4,2)
+    block, a degraded object not read back bit-exact, or a path that did
+    not launch its kernels."""
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_bench_"))
+    try:
+        out_path = root / "bench.json"
+        try:
+            r = subprocess.run([sys.executable, str(ctx["repo"] /
+                                                    "chip_smoke.py"),
+                                "--bench-child", str(out_path)],
+                               cwd=str(ctx["repo"]),
+                               timeout=BENCH_CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"bench: the child did not finish in "
+                 f"{BENCH_CHILD_TIMEOUT_S} s")
+        check(r.returncode == 0, f"bench: the child exited with code "
+              f"{r.returncode}")
+        res = json.loads(out_path.read_text())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    card = ctx["card"]
+    errors = {k: v for k, v in res.items() if k.endswith("_error")}
+    check(not errors, f"bench: failed steps {json.dumps(errors)[:3000]}")
+    check(res["scrub_ok"], "bench: a headline scrub verdict was not ok")
+    check(res["rs42_covered_blocks"] == res["rs42_total_blocks"],
+          f"bench: {res['rs42_covered_blocks']} of "
+          f"{res['rs42_total_blocks']} RS(4,2) blocks parity-covered")
+    check(res["degraded_unhealed"] == 0,
+          f"bench: {res['degraded_unhealed']} degraded objects not read "
+          "back bit-exact")
+    check(res["degraded_blocks_reconstructed"] > 0,
+          "bench: the degraded phase decoded no block")
+    check(res["repair_launches"]["gf_apply_by"].get("k8r2", 0) > 0,
+          "bench: bench_repair did not run K3's k8r2 decode rows")
+    by_path = {"bench_headline": res["hybrid_launches"],
+               "bench_device": res["device_phase_launches"],
+               "bench_repair": res["repair_launches"],
+               "bench_put": res["put_phase_launches"],
+               "bench_rs_put": res["rs_put_phase_launches"],
+               "bench_degraded": res["degraded_phase_launches"]}
+    for path, counts in by_path.items():
+        log(f"[bench] launches on the {path} path: {json.dumps(counts)}")
+        for name in BENCH_NEEDS[path]:
+            check(counts[name] > 0,
+                  f"kernel {name} was not launched on the {path} path")
+    log(f"[bench] on {card}: headline {res['value']:.4f} GiB/s (device "
+        f"share {res['tpu_frac']:.4f}, gate {res['hybrid_gate']}, link "
+        f"{res['hybrid_link_gibs']}), serial hashlib baseline "
+        f"{res['baseline_gibs']:.4f}, CPU floor {res['cpu_gibs']:.4f}, "
+        f"RS(8,4) 2-loss repair {res['rs84_repair_2loss_gibs']:.4f} GiB/s; "
+        f"device-resident K4 {res['device_gibs']} GiB/s at "
+        f"{res['device_lanes']} x {res['device_block_kib']} KiB, K2 "
+        f"{res['cuda_gf_gibs']}, plain GF {res['plain_gf_gibs']}, plain "
+        f"fused {res['device_plain_gibs']} GiB/s")
+    log(f"[bench] on {card}: put p50 {res['put_p50_ms']} ms, p99 "
+        f"{res['put_p99_ms']} ms, get p50 {res['put_get_p50_ms']} ms, "
+        f"conc8 p50 {res['put_conc8_p50_ms']} ms; rs42 4 MiB put p50 "
+        f"{res['rs42_put_4mib_p50_ms']} ms ({res['rs42_covered_blocks']} "
+        f"blocks covered); degraded: {res['degraded_lost_gib']} GiB lost, "
+        f"healed in {res['degraded_heal_s']} s ({res['degraded_gibs']} "
+        f"GiB/s), {res['degraded_blocks_reconstructed']} blocks decoded")
+    log(f"[bench] step seconds {json.dumps(res['step_s'])}")
+    res["launches_by_path"] = by_path
+    res["launches"] = {name: sum(c[name] for c in by_path.values())
+                       for name in CODEC_KERNELS}
+    return res
+
+
+def bench_child(ctx, out_path: Path) -> int:
+    """The bench phase's child: the headline's steps in this process, the
+    three API phases in processes of their own, the result as JSON."""
+    torch = ctx["torch"]
+    from garage_tpu_torch.tools import bench
+    from garage_tpu_torch.tools.common import launch_counts, reset_launches
+
+    step_s = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        val = fn()
+        step_s[name] = time.perf_counter() - t
+        return val
+
+    batches = timed("batches", lambda: bench.make_batches(
+        np.random.default_rng(0)))
+    res = {"baseline_gibs": timed("baseline", lambda: bench.
+                                  bench_reference_serial(batches)),
+           "cpu_gibs": timed("cpu", lambda: bench.bench_cpu(batches))}
+    reset_launches()
+    res["rs84_repair_2loss_gibs"] = timed(
+        "repair", lambda: bench.bench_repair(batches))
+    torch.cuda.synchronize()
+    res["repair_launches"] = launch_counts()
+    reset_launches()
+    value, frac, dev, codec = timed("hybrid",
+                                    lambda: bench.bench_hybrid(batches))
+    torch.cuda.synchronize()
+    res["hybrid_launches"] = launch_counts()
+    res.update(dev, value=value, tpu_frac=frac, scrub_ok=True,
+               hybrid_link_gibs=codec.last_link_gibs,
+               hybrid_gate=codec.last_gate)
+    codec.close()
+    del batches
+    for flag in BENCH_PHASES:
+        res.update(timed(flag, lambda: bench.run_phase_subprocess(flag)))
+    res["step_s"] = step_s
+    out_path.write_text(json.dumps(res, default=float))
+    return 0
+
+
 def phase_tune(ctx) -> dict:
     """T1's path: the GF variant sweep of tools/gf_tune.py on one staged
     group, each cell checked against the numpy oracle and timed."""
@@ -4473,7 +4655,7 @@ def gf_times(ctx, reps: int) -> dict:
 
 def phase_times(ctx, main: dict, prod: dict, split: dict, store: dict,
                 garage: dict, daemon: dict, chaos: dict, tools: dict,
-                tune: dict) -> list:
+                bench: dict, tune: dict) -> list:
     torch = ctx["torch"]
     from garage_tpu_torch.ops.cuda_blake2s import blake2s_batch, g_chain_cycles
     from garage_tpu_torch.tools.timing import (B2S_CHAIN_G_PER_CHUNK,
@@ -4545,11 +4727,14 @@ def phase_times(ctx, main: dict, prod: dict, split: dict, store: dict,
                      "full_decode_ms": gf["full_decode"]["ms"],
                      "launches_by_body": gf_bodies_launched(
                          main, prod, split, store, garage, daemon, chaos,
-                         tools)},
+                         tools, bench)},
         "fused_scrub": {},
     }
+    # K1 and K4's plain versions ran at 64 KiB rows; K2's at the scrub's
+    plain_shape = {"blake2s": ctx["plain_shape"], "gf_apply": [b, k, s4],
+                   "fused_scrub": ctx["plain_shape"]}
     rows, bounds = [], {}
-    paths = (main, prod, split, store, garage, daemon, chaos, tools)
+    paths = (main, prod, split, store, garage, daemon, chaos, tools, bench)
     by_path = {p: c for path in paths
                for p, c in path["launches_by_path"].items()}
     for name in CODEC_KERNELS:
@@ -4563,7 +4748,8 @@ def phase_times(ctx, main: dict, prod: dict, split: dict, store: dict,
             "launches": sum(path["launches"][name] for path in paths),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": ctx["max_err"][name], "ms": ms[name],
-            "plain_ms": ctx["plain_ms"][name], "bound_ms": bms,
+            "plain_ms": ctx["plain_ms"][name],
+            "plain_shape": plain_shape[name], "bound_ms": bms,
             "bound_by": by, "library_ms": None, "share": bms / ms[name],
             **extra[name],
         })
@@ -4654,6 +4840,7 @@ def main() -> int:
                          "degraded reads and the two nodes it kills, and "
                          "the daemon phase's objects and planted byte")
     ap.add_argument("--chaos-child", metavar="FILE", help=argparse.SUPPRESS)
+    ap.add_argument("--bench-child", metavar="FILE", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     repo = Path(__file__).resolve().parent
@@ -4688,6 +4875,8 @@ def main() -> int:
     card = ctx["card"] = nvidia_smi_line()
     if args.chaos_child:
         return chaos_child(ctx, Path(args.chaos_child))
+    if args.bench_child:
+        return bench_child(ctx, Path(args.bench_child))
     log(f"[card] {torch.cuda.get_device_name(0)} ({card}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
@@ -4716,9 +4905,11 @@ def main() -> int:
     daemon_out = run("daemon", phase_daemon, CODEC_KERNELS)
     chaos_out = run("chaos", phase_chaos, CODEC_KERNELS)
     tools_out = run("tools", phase_tools, CODEC_KERNELS)
+    bench_out = run("bench", phase_bench, CODEC_KERNELS)
     tune_out = run("tune", phase_tune)
     rows = phase_times(ctx, main_out, prod_out, split_out, store_out,
-                       garage_out, daemon_out, chaos_out, tools_out, tune_out)
+                       garage_out, daemon_out, chaos_out, tools_out,
+                       bench_out, tune_out)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; by "
         f"phase {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}")
     if args.out:
@@ -4728,7 +4919,8 @@ def main() -> int:
             "main": {k: v for k, v in main_out.items()},
             "production": prod_out, "split": split_out, "store": store_out,
             "garage": garage_out, "daemon": daemon_out, "chaos": chaos_out,
-            "tools": tools_out, "tune": tune_out, "phase_s": phase_s,
+            "tools": tools_out, "bench": bench_out, "tune": tune_out,
+            "phase_s": phase_s,
             "host_op_us": ctx["host_op_us"],
             "summary": ctx["summary"], "quick": args.quick}, indent=1,
             default=float))

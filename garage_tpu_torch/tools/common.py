@@ -47,6 +47,37 @@ def device_codec(params, synthetic: bool, **synthetic_kw):
     return dev
 
 
+class BytesLevel:
+    """Counts what reaches a CudaCodec through its bytes-level API (lists
+    of blocks the codec packs itself) rather than the transport's
+    array-level one, as the synthetic link counts them: ``submissions``
+    (calls), ``blocks_submitted`` and ``host_copies`` (each block's copy
+    into the codec's padded batch; the pageable H2D's staging inside the
+    CUDA driver is not counted)."""
+
+    _API = ("scrub_submit", "scrub_encode_batch", "batch_hash",
+            "batch_verify", "verify_one", "rs_encode", "rs_reconstruct")
+
+    def __init__(self, dev):
+        self.submissions = self.blocks_submitted = self.host_copies = 0
+        for name in self._API:
+            fn = getattr(dev, name)
+
+            def counted(*a, _fn=fn, **kw):
+                self.submissions += 1
+                return _fn(*a, **kw)
+
+            setattr(dev, name, counted)
+        pad = dev._pad_batch
+
+        def pad_counted(blocks, _pad=pad):
+            self.blocks_submitted += len(blocks)
+            self.host_copies += len(blocks)
+            return _pad(blocks)
+
+        dev._pad_batch = pad_counted
+
+
 def reset_launches() -> None:
     """Zero this process's kernel launch counts (K1, K2/K3, K4)."""
     from ..ops import cuda_blake2s, cuda_codec, cuda_gf

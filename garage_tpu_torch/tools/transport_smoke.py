@@ -39,37 +39,19 @@ from ..utils.data import Hash
 from ..utils.metrics import MetricsRegistry
 from ..utils.promlint import lint_exposition
 from ..utils.timeline import overlapping_slot_windows
-from .common import (check, device_codec, emit, launch_counts,
-                     reset_launches)
+from .common import (BytesLevel, check, device_codec, emit,
+                     launch_counts, reset_launches)
 
 K, M = 4, 2
 SEED = 3
 SIZES = (65536, 4096, 65536, 512, 65536, 65536, 777, 65536)
 
 
-def count_bytes_level(dev) -> dict:
-    """Count the calls a CudaCodec takes through its bytes-level API
-    (lists of blocks, staged by the codec itself) rather than the
-    transport's array-level one: {"calls": n} grows with each."""
-    seen = {"calls": 0}
-    for name in ("scrub_submit", "scrub_encode_batch", "batch_hash",
-                 "batch_verify", "verify_one", "rs_encode",
-                 "rs_reconstruct"):
-        fn = getattr(dev, name)
-
-        def counted(*a, _fn=fn, **kw):
-            seen["calls"] += 1
-            return _fn(*a, **kw)
-
-        setattr(dev, name, counted)
-    return seen
-
-
 def run(synthetic: bool) -> dict:
     params = CodecParams(rs_data=K, rs_parity=M, block_size=1 << 16)
     reg = MetricsRegistry()
     dev = device_codec(params, synthetic, link_gibs=50.0, compute_real=True)
-    bytes_level = None if synthetic else count_bytes_level(dev)
+    bytes_level = None if synthetic else BytesLevel(dev)
     reset_launches()
     hy = HybridCodec(params, device_codec=dev, metrics=reg)
     check(hy.transport is not None, "transport did not arm")
@@ -100,7 +82,7 @@ def run(synthetic: bool) -> dict:
           "scrub parity not bit-identical to the serial CPU path")
 
     tr = hy.transport
-    submissions = dev.submissions if synthetic else bytes_level["calls"]
+    submissions = (dev if synthetic else bytes_level).submissions
     check(submissions == 0, f"{submissions} submissions reached the device "
           "outside the transport queue")
     check(tr.copies_per_block() <= 1.0, f"copies per block: {tr.stats()}")

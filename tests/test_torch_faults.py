@@ -295,6 +295,10 @@ async def scrub_session(pkg, root) -> list:
             bodies = _bodies(6, 1)
             await _put_all(s3, bodies)
             inj = c.injector
+            # a PUT returns at its write quorum (2 of 3): let the third
+            # replica's write land before the files are counted
+            await _wait(lambda: len({len(inj.list_blocks(i))
+                                     for i in range(1, 4)}) == 1)
             blocks = sorted(bytes(h) for h in inj.list_blocks(1))
             log.append(("blocks per node",
                         [len(inj.list_blocks(i)) for i in range(1, 4)]))

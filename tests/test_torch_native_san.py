@@ -192,3 +192,43 @@ def test_an_unknown_suffix_raises(monkeypatch):
     monkeypatch.setenv(native.SUFFIX_ENV, ".msan")
     with pytest.raises(ValueError, match="GARAGE_NATIVE_SUFFIX"):
         native.load_native("gf256")
+
+
+def _fake_cxx(tmp_path, fail_on: str) -> str:
+    """A compiler that fails like one without OpenMP's runtime when it
+    sees `fail_on` among its arguments, and is g++ otherwise."""
+    cxx = tmp_path / "cxx"
+    cxx.write_text(
+        "#!/bin/sh\n"
+        f'for a in "$@"; do if [ "$a" = "{fail_on}" ]; then\n'
+        "  echo \"g++: fatal error: cannot read spec file 'libgomp.spec': "
+        "No such file or directory\" >&2; exit 1; fi; done\n"
+        'exec g++ "$@"\n')
+    cxx.chmod(0o755)
+    return str(cxx)
+
+
+@pytest.mark.parametrize("fail_on, builds", [("-fopenmp", True),
+                                             ("-shared", False)])
+def test_the_gf_kernel_builds_serial_without_openmp(tmp_path, monkeypatch,
+                                                    fail_on, builds):
+    """A host whose compiler has no OpenMP runtime still gets the native GF
+    kernel, serial and bit-equal to numpy; any other compiler failure
+    leaves no library, with the compiler's reason."""
+    monkeypatch.setenv("CXX", _fake_cxx(tmp_path, fail_on))
+    monkeypatch.delenv(native.SUFFIX_ENV, raising=False)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "native")
+    monkeypatch.setattr(native, "_libs", {})
+    monkeypatch.setattr(native, "_errors", {})
+    monkeypatch.setattr(native, "_resolved", {})
+    fn = native.get_native_gf_matmul_blocks()
+    if not builds:
+        assert fn is None
+        assert "libgomp.spec" in native._errors[("gf256", "")]
+        return
+    from garage_tpu_torch.ops import gf256
+
+    shards = np.random.default_rng(SEED).integers(0, 256, GF_SHAPE,
+                                                   dtype=np.uint8)
+    mat = gf256.rs_parity_matrix(8, 4)
+    assert np.array_equal(fn(mat, shards), gf256.gf_matmul_blocks(mat, shards))
