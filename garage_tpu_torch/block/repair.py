@@ -38,6 +38,7 @@ from ..utils.crdt import now_msec
 from ..utils.data import Hash
 from ..utils.migrate import Migrated
 from ..utils.persister import Persister
+from ..utils.timeline import Src, current_src, submitting
 from ..utils.tranquilizer import Tranquilizer
 
 logger = logging.getLogger("garage_tpu_torch.block.repair")
@@ -201,9 +202,33 @@ class ScrubWorker(Worker):
         # codeword (k blocks) accumulates for the parity sidecar store
         self._parity_carry: Tuple[list, list] = ([], [])
         self._prev_pass_start = 0.0  # resumed pass: purge nothing extra
+        # numbers the batches on the node's timeline (the ``scrub``
+        # track; the feeder and transport events carry it as ``src``)
+        self._batch_seq = 0
+        self._last_src = Src(0)  # the batch work() last took
 
     def _roots(self) -> List[str]:
         return [d.path for d in self.manager.data_layout.data_dirs]
+
+    def _new_src(self) -> Src:
+        self._batch_seq += 1
+        return Src(self._batch_seq)
+
+    def _span(self, name: str, t0: int, src: Src, blocks: int,
+              nbytes: int, t1: Optional[int] = None, **args) -> None:
+        """One event of the ``scrub`` track, [t0, t1 or now] (monotonic
+        ns)."""
+        self.manager.codec.obs.timeline.event(
+            name, "scrub", t0, t1 or time.monotonic_ns(), cat="scrub",
+            batch=src.id, blocks=blocks, bytes=nbytes, **args)
+
+    def throttled(self, since_ns: int) -> None:
+        """The load governor's pause after a batch (utils/background.py),
+        with the signal that pressed hardest."""
+        gov = getattr(self.manager, "governor", None)
+        sig = gov.signals() if gov is not None else {}
+        self._span("scrub throttle", since_ns, self._last_src, 0, 0,
+                   signal=max(sig, key=lambda k: sig[k] or 0.0, default=""))
 
     def name(self) -> str:
         return "Block scrub worker"
@@ -293,6 +318,7 @@ class ScrubWorker(Worker):
         # clear BEFORE awaiting: if the read fails, the next work() cycle
         # must retry a fresh read, not re-await the cached exception
         self._ra_task = None
+        t_await = time.monotonic_ns()
         item = await task
         if item is None:
             # complete
@@ -313,30 +339,55 @@ class ScrubWorker(Worker):
             self._checkpoint(force=True)
             logger.info("scrub complete, %d corruptions found", st.corruptions)
             return WorkerState.BUSY
-        batch, reads, pos_after = item
+        batch, reads, pos_after, src, ready_ns = item
+        self._last_src = src
+        # the read the previous batch's verify did not hide ends at
+        # ready_ns; from there to now the worker waited on the loop
+        self._span("scrub await_read", t_await, src, len(batch),
+                   _nbytes(reads), ready_ns=ready_ns)
         # prefetch the NEXT prefix while this one verifies: disk reads
         # overlap the codec dispatch (read→batch→device, SURVEY.md §3.4)
         self._ra_task = asyncio.ensure_future(self._read_ahead())
         status.progress = f"{self.iterator.progress() * 100:.2f}%"
         if batch:
-            await self.scrub_batch(batch, reads)
+            with submitting(src):
+                await self.scrub_batch(batch, reads)
         self._verified_pos = pos_after
         self._checkpoint()
-        return await self.tranquilizer.tranquilize_worker(st.tranquility)
+        if st.tranquility <= 0:
+            return await self.tranquilizer.tranquilize_worker(st.tranquility)
+        t0 = time.monotonic_ns()
+        state = await self.tranquilizer.tranquilize_worker(st.tranquility)
+        self._span("scrub tranquilize", t0, src, len(batch), 0)
+        return state
 
     async def _read_ahead(self):
         """Next prefix's batch + file contents, read off-thread.  Returns
-        (batch, reads, iterator_position_after) or None at end-of-store."""
+        (batch, reads, iterator_position_after, the batch's Src, the
+        monotonic ns it finished at) or None at end-of-store."""
         it = self.iterator
         if it is None:
             return None
-        batch = await asyncio.to_thread(it.next_prefix)
+        src = self._new_src()
+
+        def listing():
+            t0 = time.monotonic_ns()
+            found = it.next_prefix()
+            self._span("scrub list", t0, src, len(found or ()), 0)
+            return found
+
+        batch = await asyncio.to_thread(listing)
         if batch is None:
             return None
-        reads = await asyncio.gather(
-            *[asyncio.to_thread(_try_read, self.manager, path)
+        stamped = await asyncio.gather(
+            *[asyncio.to_thread(_read_stamped, self.manager, path)
               for _h, path, _c in batch]
         )
+        reads = [raw for _t0, raw, _t1 in stamped]
+        if stamped:
+            self._span("scrub read", min(t0 for t0, _r, _t1 in stamped),
+                       src, len(batch), _nbytes(reads),
+                       t1=max(t1 for _t0, _r, t1 in stamped))
         self._forget_pool(batch)
         # hint the device pool about the upcoming prefix: the transport
         # stages these blocks as background-class work WHILE the current
@@ -352,8 +403,9 @@ class ScrubWorker(Worker):
                     p_blocks.append(raw)
                     p_hashes.append(h)
             if p_blocks:
-                feeder.prefetch_scrub(p_blocks, p_hashes)
-        return batch, list(reads), it.position
+                with submitting(src):
+                    feeder.prefetch_scrub(p_blocks, p_hashes)
+        return batch, reads, it.position, src, time.monotonic_ns()
 
     def _forget_pool(self, batch: List[Tuple[Hash, str, bool]]) -> None:
         """Drop the device-pool pages of blocks just read from disk.  A
@@ -372,6 +424,9 @@ class ScrubWorker(Worker):
         compressed blocks validate their zstd frame checksum on CPU, as in
         the reference (block.rs:66-78)."""
         mgr = self.manager
+        # the batch on the node's timeline: the one work() is running,
+        # or a new one for a direct call
+        src = current_src() or self._new_src()
         plain_idx, plain_blocks, plain_hashes = [], [], []
         if reads is None:
             reads = await asyncio.gather(
@@ -386,7 +441,7 @@ class ScrubWorker(Worker):
                 # unreadable on media: the copy is as lost as a content
                 # mismatch — quarantine it and let the sidecar/resync
                 # ladder re-materialize a clean one
-                await self._quarantine(h, path)
+                await self._quarantine(h, path, src)
                 continue
             if compressed:
                 # decompress so the codec verifies the CONTENT hash (a
@@ -396,7 +451,7 @@ class ScrubWorker(Worker):
                 # too, not just the plain ones
                 data = await asyncio.to_thread(_try_decompress, raw)
                 if data is None:
-                    await self._quarantine(h, path)
+                    await self._quarantine(h, path, src, len(raw))
                     continue
                 plain_idx.append(i)
                 plain_blocks.append(data)
@@ -424,10 +479,12 @@ class ScrubWorker(Worker):
             # span per fused dispatch: a slow batch (gated link, mid-pass
             # XLA compile, CPU steal) shows up in the slow-op log even on
             # nodes with no trace_sink configured
+            nbytes = sum(len(b) for b in all_b)
+            src.delivered_ns = 0
+            t_submit = time.monotonic_ns()
             with mgr.system.tracer.span(
-                "Scrub batch", blocks=len(all_b),
-                bytes=sum(len(b) for b in all_b),
-            ):
+                "Scrub batch", blocks=len(all_b), bytes=nbytes,
+            ), submitting(src):
                 # through the codec feeder when armed: scrub batches are
                 # background-class submissions in the SAME queue as the
                 # foreground verifies, so on a device-armed node they
@@ -439,14 +496,26 @@ class ScrubWorker(Worker):
                     ok, parity = await mgr.feeder.scrub_async(
                         all_b, all_h, want_parity)
                 else:
-                    ok, parity = await asyncio.to_thread(
-                        mgr.codec.scrub_encode_batch, all_b, all_h,
-                        want_parity,
-                    )
+                    def direct():
+                        try:
+                            return mgr.codec.scrub_encode_batch(
+                                all_b, all_h, want_parity)
+                        finally:
+                            src.delivered()
+                    ok, parity = await asyncio.to_thread(direct)
+            # delivered_ns: the moment the feeder or transport resolved
+            # the batch; from there to now the worker waited on the loop
+            self._span("scrub verify", t_submit, src, len(all_b), nbytes,
+                       delivered_ns=src.delivered_ns)
             for j, good in enumerate(ok[nc:]):
                 if not good:
                     h, path, _ = batch[plain_idx[j]]
-                    await self._quarantine(h, path)
+                    await self._quarantine(h, path, src,
+                                           len(all_b[nc + j]))
+            acc = mgr.ec_accumulator
+            posts = (acc is not None and acc.distributor is not None
+                     or want_parity and parity is not None)
+            t_post = time.monotonic_ns()
             # Coverage refresh: verified blocks with NO live distributed
             # codeword (distribution failed at write time, coverage was
             # wrongly tombstoned, or the data predates EC) re-enter the
@@ -461,7 +530,6 @@ class ScrubWorker(Worker):
             # member survives the loss of up to m of its parity nodes —
             # full m-loss tolerance at m×(block size) overhead, paid only
             # for refreshed blocks (rewritten objects regroup at k).
-            acc = mgr.ec_accumulator
             if acc is not None and acc.distributor is not None:
                 from .block import DataBlock
 
@@ -516,8 +584,18 @@ class ScrubWorker(Worker):
                     [h for h, good in zip(all_h[rest:],
                                           ok[rest:]) if good],
                 )
+            if posts:
+                self._span("scrub post", t_post, src, len(all_b), nbytes)
 
-    async def _quarantine(self, h: Hash, path: str) -> None:
+    async def _quarantine(self, h: Hash, path: str, src: Src,
+                          nbytes: int = 0) -> None:
+        t0 = time.monotonic_ns()
+        try:
+            await self._set_aside(h, path)
+        finally:
+            self._span("scrub quarantine", t0, src, 1, nbytes)
+
+    async def _set_aside(self, h: Hash, path: str) -> None:
         self.state.corruptions += 1
         self.manager.corruptions += 1
         logger.error("scrub: corrupted block %s at %s", bytes(h).hex()[:16], path)
@@ -696,6 +774,17 @@ class RebalanceWorker(Worker):
 # sentinel distinguishing "file unreadable, disk implicated" from a
 # benign concurrent deletion (None): scrub_batch quarantines the former
 _READ_ERROR = object()
+
+
+def _nbytes(reads) -> int:
+    return sum(len(r) for r in reads if r is not None and r is not _READ_ERROR)
+
+
+def _read_stamped(mgr, path: str):
+    """``_try_read`` between two monotonic ns stamps: (t0, raw, t1)."""
+    t0 = time.monotonic_ns()
+    raw = _try_read(mgr, path)
+    return t0, raw, time.monotonic_ns()
 
 
 def _try_read(mgr, path: str):

@@ -50,6 +50,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from ..utils.cpuprof import register_thread, unregister_thread
+from ..utils.timeline import current_src, src_ids
 
 logger = logging.getLogger("garage_tpu_torch.ops.feeder")
 
@@ -71,7 +72,7 @@ class FeederClosed(RuntimeError):
 class _Item:
     __slots__ = ("kind", "payload", "blocks", "nbytes", "future", "ts",
                  "peers", "deadline", "cls", "want_parity", "tctx",
-                 "span_id", "t_ns", "t_mono_ns", "t_dispatch_ns")
+                 "span_id", "t_ns", "t_mono_ns", "t_dispatch_ns", "src")
 
     def __init__(self, kind, payload, blocks, nbytes, peers=None,
                  cls="fg", want_parity=True):
@@ -123,6 +124,13 @@ class _Item:
         self.peers = peers
         self.future: "concurrent.futures.Future" = concurrent.futures.Future()
         self.ts = time.perf_counter()
+        # the submitter's batch (utils/timeline.Src): its id rides the
+        # feeder's and the transport's timeline events as ``src``, and
+        # whichever thread resolves the future stamps its delivery
+        src = current_src()
+        self.src = src.id if src is not None else None
+        if src is not None:
+            self.future.add_done_callback(src.delivered)
 
 
 class CodecFeeder:
@@ -590,7 +598,8 @@ class CodecFeeder:
                         self.obs.timeline.event(
                             f"handoff {kind}", "feeder",
                             time.monotonic_ns(), cat="feeder",
-                            blocks=nblocks, reason=reason)
+                            blocks=nblocks, reason=reason,
+                            src=src_ids(items))
                         continue
                     except Exception:  # noqa: BLE001 — degrade inline
                         if getattr(tr, "on_card", False) and tr.alive:
@@ -691,6 +700,7 @@ class CodecFeeder:
         """Run one inline (non-transport) scrub batch and resolve its
         futures — on the dedicated scrub thread, so the dispatcher stays
         free for foreground batches."""
+        t0 = time.monotonic_ns()
         try:
             with self.obs.stage("feeder_dispatch", side):
                 results = self.codec.scrub_ragged(
@@ -702,6 +712,11 @@ class CodecFeeder:
                 if not it.future.done():
                     it.future.set_exception(e)
             return
+        self.obs.timeline.event(
+            "dispatch scrub", "feeder", t0, time.monotonic_ns(),
+            cat="feeder", blocks=sum(it.blocks for it in batch),
+            bytes=sum(it.nbytes for it in batch), side=side,
+            src=src_ids(batch))
         for it, res in zip(batch, results):
             if not it.future.done():
                 it.future.set_result(res)

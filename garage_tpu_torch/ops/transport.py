@@ -79,6 +79,7 @@ import torch
 
 from ..utils.cpuprof import register_thread, unregister_thread
 from ..utils.data import Hash
+from ..utils.timeline import current_src, src_ids
 
 logger = logging.getLogger("garage_tpu_torch.ops.transport")
 
@@ -135,11 +136,12 @@ class TransportItem:
     direct users (tests, the probe) build TransportItems."""
 
     __slots__ = ("kind", "payload", "blocks", "nbytes", "future", "cls",
-                 "deadline", "want_parity", "prefetch")
+                 "deadline", "want_parity", "prefetch", "src")
 
     def __init__(self, kind: str, payload, blocks: int, nbytes: int,
                  cls: str = "fg", deadline: Optional[float] = None,
-                 want_parity: bool = True, prefetch: bool = False):
+                 want_parity: bool = True, prefetch: bool = False,
+                 src: Optional[int] = None):
         self.kind = kind
         self.payload = payload
         self.blocks = blocks
@@ -150,6 +152,9 @@ class TransportItem:
         # pool warm-up submission (DevicePool prefetch): results are
         # discarded, staging is attributed to pool_prefetch_bytes_total
         self.prefetch = prefetch
+        # the submitter's batch id (utils/timeline.Src), carried as
+        # ``src`` by the slot events of the batches made from this item
+        self.src = src
         self.future: Future = Future()
 
 
@@ -239,7 +244,7 @@ class _Batch:
                  "t_enq", "t_pop", "t_stage0", "t_stage1", "t_adopt1",
                  "t_submit1", "t_ready", "compiled",
                  "pool_resident", "pool_adopt", "staged_payload",
-                 "prefetch")
+                 "prefetch", "src", "t_pool0", "t_pool1")
 
     def __init__(self, kind: str, cls: str):
         self.kind = kind
@@ -275,6 +280,11 @@ class _Batch:
         self.pool_adopt: Optional[list] = None
         self.staged_payload: Optional[int] = None
         self.prefetch = False
+        # the submitters' batch ids of its items (timeline ``src``) and
+        # the pool adoption inside collect
+        self.src: List[int] = []
+        self.t_pool0 = 0
+        self.t_pool1 = 0
 
 
 class DeviceTransport:
@@ -376,10 +386,6 @@ class DeviceTransport:
         self.link_busy_seconds = 0.0
         self._busy_since: Optional[float] = None
         self._queued_est = 0  # staged_est bytes still in the EDF heap
-        # wall↔monotonic offset for converting timeline stamps into the
-        # wall-clock span records the waterfall stores
-        self._mono_off = time.time_ns() - time.monotonic_ns()
-
         # stage-level link attribution: every batch and every
         # probe round trip decomposed into stage_copy/adopt/compile/
         # dispatch/compute/collect with an exact-sum guarantee.  Hung off
@@ -499,6 +505,7 @@ class DeviceTransport:
             if self._closed:
                 raise TransportClosed("device transport is shut down")
             for b in batches:
+                b.src = src_ids(p.item for p in b.parts)
                 b.ts = time.perf_counter()
                 b.t_enq = t_ns
                 b.eff_deadline = self._effective_deadline(b, now)
@@ -527,7 +534,8 @@ class DeviceTransport:
                  batches=len(batches),
                  nbytes=sum(b.nbytes for b in batches),
                  feeder_ms=round((t_ns - oldest) / 1e6, 3) if oldest
-                 else None)
+                 else None,
+                 src=sorted({i for b in batches for i in b.src}))
         tl.counter("transport_queue", t_ns,
                    fg=self._depth.get("fg", 0), bg=self._depth.get("bg", 0))
 
@@ -724,7 +732,7 @@ class DeviceTransport:
                     f"edf_pop {batch.kind}", "edf", batch.t_pop,
                     cat="transport", cls=batch.cls,
                     wait_ms=round((batch.t_pop - batch.t_enq) / 1e6, 3),
-                    deadline=round(batch.eff_deadline, 6))
+                    deadline=round(batch.eff_deadline, 6), src=batch.src)
                 if self._device_down:
                     # the down latch means every device submit is doomed:
                     # queued batches skip straight to the CPU fallback
@@ -793,12 +801,12 @@ class DeviceTransport:
                      prefetch=batch.prefetch,
                      pool_hits=(len(batch.pool_resident)
                                 if batch.pool_resident is not None
-                                else None))
+                                else None), src=batch.src)
             tl.event(f"adopt {batch.kind}", track, batch.t_stage1,
-                     batch.t_adopt1, cat="transport")
+                     batch.t_adopt1, cat="transport", src=batch.src)
             tl.event(f"submit {batch.kind}", track, batch.t_adopt1,
                      batch.t_submit1, cat="transport",
-                     compiled=batch.compiled)
+                     compiled=batch.compiled, src=batch.src)
             variant = getattr(self.device, "last_submit_variant", None)
             with self._cond:
                 if not self._inflight and self._busy_since is None:
@@ -875,9 +883,13 @@ class DeviceTransport:
             # CUDA event wait, observed inside _collect)
             tl.event(f"compute {batch.kind}", track, batch.t_submit1,
                      batch.t_ready, cat="transport",
-                     prefetch=batch.prefetch)
+                     prefetch=batch.prefetch, src=batch.src)
         tl.event(f"collect {batch.kind}", track, batch.t_ready or t_c0,
-                 t_c1, cat="transport", blocks=batch.blocks)
+                 t_c1, cat="transport", blocks=batch.blocks, src=batch.src)
+        if batch.t_pool1:
+            tl.event(f"pool_adopt {batch.kind}", track, batch.t_pool0,
+                     batch.t_pool1, cat="transport",
+                     blocks=len(batch.pool_adopt), src=batch.src)
         if batch.t_stage0:
             self.profiler.record(
                 batch.kind, batch.nbytes, batch.t_stage0,
@@ -900,7 +912,7 @@ class DeviceTransport:
         tracer = self.obs.tracer
         if tracer is None:
             return
-        off = self._mono_off
+        off = None
         seen = set()
         for part in batch.parts:
             it = part.item
@@ -909,6 +921,9 @@ class DeviceTransport:
                 continue
             seen.add(id(it))
             parent = getattr(it, "span_id", None) or tctx.span_id
+            if off is None:
+                a = self.obs.timeline.anchor()
+                off = a["wall_ns"] - a["mono_ns"]
             try:
                 tracer.record_span(
                     f"Transport wait {batch.kind}", tctx.trace_id,
@@ -1264,6 +1279,7 @@ class DeviceTransport:
                 # adopt VERIFIED miss lanes only: a lane that failed
                 # its hash check must never become a servable page
                 page = pool.page_bytes
+                batch.t_pool0 = time.monotonic_ns()
                 with self.obs.stage("pool_adopt", "tpu"):
                     for r, key, n in batch.pool_adopt:
                         if not bool(ok[r]):
@@ -1275,6 +1291,7 @@ class DeviceTransport:
                                            exc_info=True)
                             break
                         pool.adopt(key, pages, n)
+                batch.t_pool1 = time.monotonic_ns()
             k = max(1, self.params.rs_data)
             results = []
             for part, (o, n) in zip(batch.parts, spans):
@@ -1421,9 +1438,11 @@ class DeviceTransport:
         if not todo_b:
             return 0
         nbytes = int(sum(len(b) for b in todo_b))
+        src = current_src()
         it = TransportItem("scrub", (todo_b, todo_h), len(todo_b),
                            nbytes, cls="bg", want_parity=False,
-                           prefetch=True)
+                           prefetch=True,
+                           src=src.id if src is not None else None)
         it.future.add_done_callback(_swallow_result)
         try:
             self.submit_items("scrub", [it], want_parity=False)
@@ -1431,7 +1450,8 @@ class DeviceTransport:
             return 0
         self.obs.timeline.event(
             "pool_prefetch", "edf", time.monotonic_ns(),
-            cat="transport", blocks=len(todo_b), nbytes=nbytes)
+            cat="transport", blocks=len(todo_b), nbytes=nbytes,
+            src=[it.src] if it.src is not None else [])
         return nbytes
 
     def pool_covers(self, items: Sequence) -> bool:

@@ -125,6 +125,11 @@ class Worker:
         """Called when work() returned IDLE; return when there may be work."""
         await asyncio.sleep(1.0)
 
+    def throttled(self, since_ns: int) -> None:
+        """Called after the load governor paused this worker from
+        ``since_ns`` (``time.monotonic_ns``) until now; a worker that
+        keeps a timeline records the pause there."""
+
 
 # ref background/worker.rs:28-33: backoff base 1.5^n, 10 errors before warn
 _ERROR_RETRY_BASE = 1.0
@@ -189,7 +194,9 @@ class BackgroundRunner:
                     pause = self.governor.bg_pause(time.monotonic() - t0)
                     if pause > 0:
                         status.state = WorkerState.THROTTLED
+                        t_pause = time.monotonic_ns()
                         await self._sleep_or_stop(pause)
+                        worker.throttled(t_pause)
             except asyncio.CancelledError:
                 raise
             except Exception as e:

@@ -9,10 +9,20 @@ pop, per-slot staging, device submit, collect — so `chrome://tracing`
 slot 0 computed" is a picture, not an argument.
 
 Always on, bounded (`maxlen` events, each a small dict), one lock.
-Producers are the codec feeder and the device transport via the shared
-CodecObserver (`obs.timeline`); consumers are the admin
-`device_timeline` command, the HTTP `/v1/timeline` endpoint and
-`scripts/device_timeline.py`.
+Producers are the scrub worker, the codec feeder and the device
+transport via the shared CodecObserver (`obs.timeline`); consumers are
+the admin `device_timeline` command, the HTTP `/v1/timeline` endpoint,
+`tools/device_timeline.py`, and readers that drain the ring with
+`since()` so that a window longer than the ring arrives whole.
+
+Events are numbered in the order they were recorded; `since(cursor)`
+returns those after a cursor and counts the ones the ring evicted
+before they were read.  `anchor()` pairs the wall clock with the
+monotonic clock the events are stamped on, so an export lines up with
+another trace on the wall clock (a `torch.profiler` trace, a request's
+waterfall).  A submitter that wants its work followed across threads
+sets a `Src` (`submitting`): the feeder item and the transport batches
+made from that work carry its id as `src`.
 
 Chrome-trace mapping: duration events are phase "X" (ts + dur, µs),
 instants are "i", counters are "C".  Tracks ("tid") are stable small
@@ -22,12 +32,73 @@ the UI shows "slot0", "edf", "feeder" instead of numbers.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import itertools
 import threading
 import time
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 DEFAULT_SIZE = 8192
+
+
+def anchor() -> dict:
+    """The wall clock (``time_ns``) beside the monotonic clock the events
+    are stamped on: the narrowest of three back-to-back readings, the
+    monotonic time taken as the middle of its bracket.  An event at
+    monotonic ``t`` ns happened at wall ``t + wall_ns - mono_ns``."""
+    best = None
+    for _ in range(3):
+        m0 = time.monotonic_ns()
+        wall = time.time_ns()
+        m1 = time.monotonic_ns()
+        if best is None or m1 - m0 < best[2]:
+            best = (wall, (m0 + m1) // 2, m1 - m0)
+    return {"wall_ns": best[0], "mono_ns": best[1], "bracket_ns": best[2]}
+
+
+class Src:
+    """One submitter's unit of work (a scrub batch): ``id`` is what the
+    feeder item and the transport batches made from it carry as
+    ``src``; ``delivered_ns`` is the monotonic moment the feeder or the
+    transport resolved its result (0 until then)."""
+
+    __slots__ = ("id", "delivered_ns")
+
+    def __init__(self, id: int):
+        self.id = int(id)
+        self.delivered_ns = 0
+
+    def delivered(self, _future=None) -> None:
+        """A future's done-callback: runs in the resolving thread."""
+        self.delivered_ns = time.monotonic_ns()
+
+
+_src: contextvars.ContextVar[Optional[Src]] = contextvars.ContextVar(
+    "garage_tpu_timeline_src", default=None)
+
+
+def current_src() -> Optional[Src]:
+    return _src.get()
+
+
+def src_ids(items) -> List[int]:
+    """The submitters' batch ids among work items (their ``src``), the
+    ``src`` of an event about them."""
+    return sorted({i for i in (getattr(it, "src", None) for it in items)
+                   if i is not None})
+
+
+@contextlib.contextmanager
+def submitting(src: Src) -> Iterator[Src]:
+    """Work submitted inside the block (this task, and the threads it
+    hands work to) carries ``src``."""
+    token = _src.set(src)
+    try:
+        yield src
+    finally:
+        _src.reset(token)
 
 
 class Timeline:
@@ -61,11 +132,7 @@ class Timeline:
             ev["s"] = "t"  # instant scope: thread
         if args:
             ev["args"] = args
-        with self._lock:
-            ev["tid"] = self._track(track)
-            if len(self._ring) == self._ring.maxlen:
-                self.dropped += 1
-            self._ring.append(ev)
+        self._append(ev, track)
 
     def counter(self, name: str, start_ns: int, **values) -> None:
         """Counter sample (stacked area in the trace viewer) — queue
@@ -73,11 +140,35 @@ class Timeline:
         ev = {"name": name, "cat": "counter", "ph": "C",
               "ts": start_ns // 1000, "pid": 1,
               "args": {k: float(v) for k, v in values.items()}}
+        self._append(ev, "counters")
+
+    def _append(self, ev: dict, track: str) -> None:
         with self._lock:
-            ev["tid"] = self._track("counters")
+            ev["tid"] = self._track(track)
             if len(self._ring) == self._ring.maxlen:
                 self.dropped += 1
             self._ring.append(ev)
+
+    def since(self, cursor: int = 0) -> Tuple[List[dict], int, int]:
+        """(the events recorded after ``cursor``, the cursor after them,
+        how many of those the ring evicted before this read).  Event n
+        (from 1) is the n-th recorded; the ring holds the events after
+        ``dropped``, so a reader that calls again with the returned
+        cursor before the ring wraps reads every event once."""
+        with self._lock:
+            first, held = self.dropped, len(self._ring)
+            # from the newest end: a poll costs the events it returns
+            new = max(0, min(held, first + held - cursor))
+            events = list(itertools.islice(reversed(self._ring), new))
+        events.reverse()
+        return events, first + held, max(0, first - cursor)
+
+    def track_names(self) -> Dict[int, str]:
+        """tid -> track name."""
+        with self._lock:
+            return {tid: name for name, tid in self._tracks.items()}
+
+    anchor = staticmethod(anchor)
 
     def snapshot(self, limit: Optional[int] = None) -> List[dict]:
         with self._lock:
@@ -90,13 +181,11 @@ class Timeline:
         """The catapult JSON object: sorted traceEvents plus
         process/thread metadata so tracks render with their names."""
         events = sorted(self.snapshot(limit), key=lambda e: e["ts"])
-        with self._lock:
-            tracks = dict(self._tracks)
         meta: List[dict] = [{
             "name": "process_name", "ph": "M", "pid": 1, "tid": 0,
             "args": {"name": "garage_tpu_torch device pipeline"},
         }]
-        for name, tid in sorted(tracks.items(), key=lambda kv: kv[1]):
+        for tid, name in sorted(self.track_names().items()):
             meta.append({"name": "thread_name", "ph": "M", "pid": 1,
                          "tid": tid, "args": {"name": name}})
         return {
@@ -106,6 +195,8 @@ class Timeline:
                 "source": "garage_tpu_torch",
                 "captured_at": round(time.time(), 3),
                 "dropped_events": self.dropped,
+                # ts + (wall_ns - mono_ns) / 1000 = wall-clock us
+                "anchor": anchor(),
             },
         }
 
