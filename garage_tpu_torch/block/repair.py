@@ -14,12 +14,16 @@ Equivalent of reference src/block/repair.rs (SURVEY.md §2.5):
 
 Difference from the reference (the north-star design, BASELINE.md): the
 reference scrubs strictly one block at a time — read, blake2, next
-(repair.rs:438-490).  Here the iterator feeds *batches* to the BlockCodec:
-one codec dispatch per 2-level hash prefix directory (`xx/yy`), i.e. every
-block under that prefix (plus, with parity sidecars, the < k verified
-blocks carried over to fill a codeword).  With 65,536 prefixes a store
-of fewer than ~65k blocks hands the codec about one block per dispatch;
-`batch_blocks` does not bound or widen these batches.
+(repair.rs:438-490).  Here the read-ahead lists successive `xx/yy`
+prefix directories, whole, into a *window* until it holds at least the
+codec's `batch_blocks` blocks or the pass ends, and the window goes to
+the codec as one dispatch (plus, with parity sidecars, the < k verified
+blocks carried over to fill a codeword).  A store of fewer than ~65k
+blocks spreads about one block over each of its prefixes, so without
+the window the codec would see about one block per dispatch.  Each
+`work()` still settles one prefix (its quarantines, its sidecars, its
+checkpoint position), so the persisted and resumed positions are the
+reference's, prefix by prefix.
 """
 
 from __future__ import annotations
@@ -48,6 +52,10 @@ SCRUB_INTERVAL_MAX = 35 * 86400
 DEFAULT_SCRUB_TRANQUILITY = 4     # ref repair.rs:27
 CHECKPOINT_INTERVAL = 60.0        # ref repair.rs:460-464
 REPAIR_BATCH = 1000               # ref repair.rs:92-101 (sqlite-safe batches)
+# threads reading a scrub window's files, each a contiguous run of it: a
+# thread per file (the default executor's up to 32) read no faster on
+# the card's host and doubled the event loop's stalls on the GIL
+SCRUB_READ_THREADS = 8
 
 
 class BlockStoreIterator:
@@ -57,10 +65,18 @@ class BlockStoreIterator:
     Position = last fully-processed 2-level prefix (0..65536); progress is
     prefix/65536 — equivalent to the reference's fixed-point fraction."""
 
-    def __init__(self, roots: List[str], position: int = 0):
+    def __init__(self, roots: List[str], position: int = 0,
+                 walk: Optional["BlockStoreIterator"] = None):
         self.roots = roots
         self.position = position  # next 2-byte prefix to scan
         self._prefixes: Optional[List[int]] = None  # existing dirs, sorted
+        # a look-ahead cursor shares its walk's prefix scan
+        self._walk = walk
+
+    def look_ahead(self, position: int) -> "BlockStoreIterator":
+        """A second cursor over this walk, from ``position``: the two
+        share one scan of the prefix dirs."""
+        return BlockStoreIterator(self.roots, position, walk=self)
 
     def progress(self) -> float:
         return self.position / 65536.0
@@ -93,19 +109,28 @@ class BlockStoreIterator:
                             pass
         return sorted(pref)
 
+    def advance(self) -> Optional[int]:
+        """Move past the next existing prefix dir without listing it and
+        return it; None when the walk is complete."""
+        import bisect
+
+        walk = self._walk or self
+        if walk._prefixes is None:
+            walk._prefixes = walk._scan_prefixes()
+        i = bisect.bisect_left(walk._prefixes, self.position)
+        if i >= len(walk._prefixes) or self.is_done():
+            self.position = 65536
+            return None
+        p = walk._prefixes[i]
+        self.position = p + 1
+        return p
+
     def next_prefix(self) -> Optional[List[Tuple[Hash, str, bool]]]:
         """All blocks under the next existing prefix dir:
         [(hash, path, compressed)]; None when the walk is complete."""
-        if self._prefixes is None:
-            self._prefixes = self._scan_prefixes()
-        import bisect
-
-        i = bisect.bisect_left(self._prefixes, self.position)
-        if i >= len(self._prefixes) or self.is_done():
-            self.position = 65536
+        p = self.advance()
+        if p is None:
             return None
-        p = self._prefixes[i]
-        self.position = p + 1
         d1, d2 = f"{p >> 8:02x}", f"{p & 0xFF:02x}"
         seen = {}
         for root in self.roots:
@@ -171,10 +196,53 @@ def randomize_next_scrub() -> int:
     )
 
 
+class _Window:
+    """Successive prefixes read ahead together and verified in one codec
+    dispatch: ``groups`` holds (the walk's position after the prefix,
+    its entries in ``batch``) in walk order, and ``work()`` settles one
+    group at a time from ``judged``."""
+
+    __slots__ = ("groups", "batch", "reads", "src", "ready_ns", "judged",
+                 "settled")
+
+    def __init__(self, groups, batch, reads, src: Src, ready_ns: int):
+        self.groups: List[Tuple[int, int]] = groups
+        self.batch: List[Tuple[Hash, str, bool]] = batch
+        self.reads: List = reads
+        self.src = src
+        self.ready_ns = ready_ns
+        self.judged: Optional[_Judged] = None
+        self.settled = 0  # batch entries of the groups settled so far
+
+
+class _Judged:
+    """What one dispatch found about a batch, for settling it: the
+    entries set aside before the dispatch (unreadable media, a frame
+    that does not decompress) with their bytes, each verified entry's
+    index in the dispatched stream (the parity carry first), the
+    stream's verdicts and parity, and the parity carry as indices into
+    the stream."""
+
+    __slots__ = ("aside", "at", "blocks", "hashes", "ok", "parity",
+                 "want_parity", "carry")
+
+    def __init__(self, aside, at, blocks, hashes, ok, parity,
+                 want_parity: bool, nc: int):
+        self.aside: dict = aside
+        self.at: dict = at
+        self.blocks: List[bytes] = blocks
+        self.hashes: List[Hash] = hashes
+        self.ok = ok
+        self.parity = parity
+        self.want_parity = want_parity
+        self.carry: List[int] = list(range(nc))
+
+
 class ScrubWorker(Worker):
-    """Batch-first scrub: BlockStoreIterator prefixes → codec.batch_verify
-    (one device dispatch per batch) → corrupted blocks moved aside +
-    requeued for resync."""
+    """Batch-first scrub: BlockStoreIterator prefixes, coalesced into
+    windows of ``batch_blocks`` blocks → one codec dispatch per window →
+    corrupted blocks moved aside + requeued for resync, one prefix per
+    ``work()``."""
 
     def __init__(self, manager, persister: Optional[Persister] = None):
         self.manager = manager
@@ -193,10 +261,13 @@ class ScrubWorker(Worker):
         self._last_checkpoint = time.monotonic()
         self._cmd: asyncio.Queue = asyncio.Queue()
         self._wake = asyncio.Event()
-        # read-ahead: next prefix's file contents load while the current
-        # one verifies; checkpoints record the VERIFIED position, not the
-        # iterator's (which runs one prefix ahead)
+        # read-ahead: the next window's file contents load while the
+        # current one verifies, listed by a look-ahead cursor of its own;
+        # ``iterator`` stays where a one-prefix read-ahead would have
+        # moved it, and checkpoints record the VERIFIED position
         self._ra_task: Optional[asyncio.Task] = None
+        self._cursor: Optional[BlockStoreIterator] = None
+        self._window: Optional[_Window] = None  # dispatched, not settled
         self._verified_pos = self.state.position
         # verified plain blocks carried between batches until a full RS
         # codeword (k blocks) accumulates for the parity sidecar store
@@ -286,6 +357,8 @@ class ScrubWorker(Worker):
         if self._ra_task is not None:
             self._ra_task.cancel()
             self._ra_task = None
+        self._cursor = None
+        self._window = None
 
     def _checkpoint(self, force: bool = False) -> None:
         if self.persister is None:
@@ -314,86 +387,123 @@ class ScrubWorker(Worker):
         if st.paused:
             return WorkerState.IDLE
         self.tranquilizer.reset()
-        task = self._ra_task or asyncio.ensure_future(self._read_ahead())
-        # clear BEFORE awaiting: if the read fails, the next work() cycle
-        # must retry a fresh read, not re-await the cached exception
-        self._ra_task = None
-        t_await = time.monotonic_ns()
-        item = await task
-        if item is None:
-            # complete
-            st.time_last_complete = now_msec()
-            st.time_next_run = randomize_next_scrub()
-            st.running = False
-            self.iterator = None
-            self._drop_parity_carry()  # <k leftover: next pass retries
-            if self.manager.parity_store is not None:
-                # codeword membership shifts with churn: drop sidecars
-                # refreshed by NEITHER this pass nor the previous one,
-                # else orphans accumulate forever (one-pass grace keeps
-                # coverage for rows that failed verify this pass)
-                await asyncio.to_thread(
-                    self.manager.parity_store.purge_stale,
-                    self._prev_pass_start,
-                )
-            self._checkpoint(force=True)
-            logger.info("scrub complete, %d corruptions found", st.corruptions)
-            return WorkerState.BUSY
-        batch, reads, pos_after, src, ready_ns = item
-        self._last_src = src
-        # the read the previous batch's verify did not hide ends at
-        # ready_ns; from there to now the worker waited on the loop
-        self._span("scrub await_read", t_await, src, len(batch),
-                   _nbytes(reads), ready_ns=ready_ns)
-        # prefetch the NEXT prefix while this one verifies: disk reads
-        # overlap the codec dispatch (read→batch→device, SURVEY.md §3.4)
-        self._ra_task = asyncio.ensure_future(self._read_ahead())
+        win = self._window
+        if win is None:
+            task = self._ra_task or asyncio.ensure_future(self._read_ahead())
+            # clear BEFORE awaiting: if the read fails, the next work()
+            # cycle must retry a fresh read, not re-await the cached
+            # exception
+            self._ra_task = None
+            t_await = time.monotonic_ns()
+            win = await task
+            if win is None:
+                # complete
+                st.time_last_complete = now_msec()
+                st.time_next_run = randomize_next_scrub()
+                st.running = False
+                self.iterator = None
+                self._cursor = None
+                self._drop_parity_carry()  # <k leftover: next pass retries
+                if self.manager.parity_store is not None:
+                    # codeword membership shifts with churn: drop sidecars
+                    # refreshed by NEITHER this pass nor the previous one,
+                    # else orphans accumulate forever (one-pass grace keeps
+                    # coverage for rows that failed verify this pass)
+                    await asyncio.to_thread(
+                        self.manager.parity_store.purge_stale,
+                        self._prev_pass_start,
+                    )
+                self._checkpoint(force=True)
+                logger.info("scrub complete, %d corruptions found",
+                            st.corruptions)
+                return WorkerState.BUSY
+            self._last_src = win.src
+            # the read the previous window's verify did not hide ends at
+            # ready_ns; from there to now the worker waited on the loop
+            self._span("scrub await_read", t_await, win.src, len(win.batch),
+                       _nbytes(win.reads), ready_ns=win.ready_ns)
+            # read the NEXT window while this one verifies: disk reads
+            # overlap the codec dispatch (read→batch→device, SURVEY.md §3.4)
+            self._ra_task = asyncio.ensure_future(self._read_ahead())
+            if win.batch:
+                with submitting(win.src):
+                    win.judged = await self.scrub_batch(win.batch, win.reads)
+            self._window = win
+        # settle the window's next prefix, from the verdicts the dispatch
+        # already holds
+        src = win.src
+        pos_after, n = win.groups.pop(0)
+        lo = win.settled
+        win.settled += n
+        if not win.groups:
+            self._window = None
+        # where the reference's one-prefix read-ahead has moved the walk
+        self.iterator.position = pos_after
+        self.iterator.advance()
         status.progress = f"{self.iterator.progress() * 100:.2f}%"
-        if batch:
+        if win.judged is not None and n:
             with submitting(src):
-                await self.scrub_batch(batch, reads)
+                await self._settle(win.judged, win.batch[lo:lo + n], lo, src)
         self._verified_pos = pos_after
         self._checkpoint()
         if st.tranquility <= 0:
             return await self.tranquilizer.tranquilize_worker(st.tranquility)
         t0 = time.monotonic_ns()
         state = await self.tranquilizer.tranquilize_worker(st.tranquility)
-        self._span("scrub tranquilize", t0, src, len(batch), 0)
+        self._span("scrub tranquilize", t0, src, n, 0)
         return state
 
-    async def _read_ahead(self):
-        """Next prefix's batch + file contents, read off-thread.  Returns
-        (batch, reads, iterator_position_after, the batch's Src, the
-        monotonic ns it finished at) or None at end-of-store."""
+    async def _read_ahead(self) -> Optional[_Window]:
+        """The next window, read off-thread: successive prefixes, whole,
+        until it holds the codec's ``batch_blocks`` blocks or the walk
+        ends (a prefix that fills it alone makes a window by itself),
+        with their file contents; None at end-of-store."""
         it = self.iterator
         if it is None:
             return None
+        if self._cursor is None:
+            self._cursor = it.look_ahead(self._verified_pos)
+        cur = self._cursor
+        want = max(1, int(self.manager.codec.params.batch_blocks))
         src = self._new_src()
 
         def listing():
             t0 = time.monotonic_ns()
-            found = it.next_prefix()
-            self._span("scrub list", t0, src, len(found or ()), 0)
-            return found
+            groups, batch = [], []
+            while len(batch) < want:
+                found = cur.next_prefix()
+                if found is None:
+                    break
+                groups.append((cur.position, len(found)))
+                batch.extend(found)
+            self._span("scrub list", t0, src, len(batch), 0,
+                       prefixes=len(groups))
+            return groups, batch
 
-        batch = await asyncio.to_thread(listing)
-        if batch is None:
+        groups, batch = await asyncio.to_thread(listing)
+        if not groups:
             return None
-        stamped = await asyncio.gather(
-            *[asyncio.to_thread(_read_stamped, self.manager, path)
-              for _h, path, _c in batch]
-        )
+
+        def read_run(run):
+            return [_read_stamped(self.manager, path) for _h, path, _c in run]
+
+        step = max(1, -(-len(batch) // SCRUB_READ_THREADS))
+        runs = await asyncio.gather(
+            *[asyncio.to_thread(read_run, batch[i:i + step])
+              for i in range(0, len(batch), step)])
+        stamped = [r for run in runs for r in run]
         reads = [raw for _t0, raw, _t1 in stamped]
         if stamped:
             self._span("scrub read", min(t0 for t0, _r, _t1 in stamped),
                        src, len(batch), _nbytes(reads),
-                       t1=max(t1 for _t0, _r, t1 in stamped))
+                       t1=max(t1 for _t0, _r, t1 in stamped),
+                       prefixes=_prefixes(batch))
         self._forget_pool(batch)
-        # hint the device pool about the upcoming prefix: the transport
+        # hint the device pool about the upcoming window: the transport
         # stages these blocks as background-class work WHILE the current
-        # batch computes (riding the transport's double buffer), so the next
-        # batch's H2D cost hides under compute and its scrub becomes a
-        # pool hit.  Plain blocks only — compressed copies are verified
+        # window computes (riding the transport's double buffer), so the
+        # next window's H2D cost hides under compute and its scrub becomes
+        # a pool hit.  Plain blocks only — compressed copies are verified
         # on their decompressed content, which we don't have yet.
         feeder = self.manager.feeder
         if feeder is not None:
@@ -405,7 +515,7 @@ class ScrubWorker(Worker):
             if p_blocks:
                 with submitting(src):
                     feeder.prefetch_scrub(p_blocks, p_hashes)
-        return batch, reads, it.position, src, time.monotonic_ns()
+        return _Window(groups, batch, reads, src, time.monotonic_ns())
 
     def _forget_pool(self, batch: List[Tuple[Hash, str, bool]]) -> None:
         """Drop the device-pool pages of blocks just read from disk.  A
@@ -417,67 +527,66 @@ class ScrubWorker(Worker):
             self.manager.pool_invalidate(h, "scrub_read")
 
     async def scrub_batch(self, batch: List[Tuple[Hash, str, bool]],
-                          reads: Optional[List[Optional[bytes]]] = None) -> None:
-        """Verify one batch through the codec; quarantine corrupt blocks.
+                          reads: Optional[List[Optional[bytes]]] = None
+                          ) -> _Judged:
+        """Verify one batch through the codec in one dispatch and return
+        what it found; ``_settle`` sets aside the corrupt blocks and
+        writes the sidecars, one prefix at a time.
 
-        Plain blocks go through codec.batch_verify (the device dispatch);
-        compressed blocks validate their zstd frame checksum on CPU, as in
-        the reference (block.rs:66-78)."""
+        Plain blocks go through the codec's fused verify (the device
+        dispatch); compressed blocks join it decompressed, verified on
+        their CONTENT hash (a stronger check than the reference's
+        zstd-checksum-only verify, block.rs:66-78), so that they join a
+        parity codeword too — compressed blocks must be locally
+        repairable, not just the plain ones."""
         mgr = self.manager
         # the batch on the node's timeline: the one work() is running,
         # or a new one for a direct call
         src = current_src() or self._new_src()
-        plain_idx, plain_blocks, plain_hashes = [], [], []
         if reads is None:
             reads = await asyncio.gather(
                 *[asyncio.to_thread(_try_read, mgr, path)
                   for _h, path, _c in batch]
             )
             self._forget_pool(batch)
-        for i, ((h, path, compressed), raw) in enumerate(zip(batch, reads)):
+        # judged before the dispatch, set aside when their prefix
+        # settles: a copy unreadable on media is as lost as a content
+        # mismatch (the sidecar/resync ladder re-materializes a clean
+        # one), and so is a compressed frame that does not decompress
+        aside, plain, packed = {}, {}, []
+        for i, ((_h, _path, compressed), raw) in enumerate(zip(batch, reads)):
             if raw is None:
                 continue
             if raw is _READ_ERROR:
-                # unreadable on media: the copy is as lost as a content
-                # mismatch — quarantine it and let the sidecar/resync
-                # ladder re-materialize a clean one
-                await self._quarantine(h, path, src)
-                continue
-            if compressed:
-                # decompress so the codec verifies the CONTENT hash (a
-                # stronger check than the reference's zstd-checksum-only
-                # verify, block.rs:66-78) and the block joins a parity
-                # codeword — compressed blocks must be locally repairable
-                # too, not just the plain ones
-                data = await asyncio.to_thread(_try_decompress, raw)
-                if data is None:
-                    await self._quarantine(h, path, src, len(raw))
-                    continue
-                plain_idx.append(i)
-                plain_blocks.append(data)
-                plain_hashes.append(h)
+                aside[i] = 0
+            elif compressed:
+                packed.append(i)
             else:
-                plain_idx.append(i)
-                plain_blocks.append(raw)
-                plain_hashes.append(h)
-        if plain_blocks:
-            store = mgr.parity_store
-            want_parity = (
-                store is not None and mgr.codec.params.rs_data > 0
-            )
-            # prepend the carry (already-verified blocks from previous
-            # batches) so RS codewords align to k across batch boundaries
-            # — a per-prefix batch rarely holds k blocks by itself.  The
-            # ≤ k-1 carry blocks are re-hashed by the fused dispatch and
-            # the trailing partial row's parity is recomputed next batch:
-            # bounded waste (< k blocks per batch) accepted to keep the
-            # verify+encode a single codec call
-            carry_b, carry_h = self._parity_carry if want_parity else ([], [])
-            nc = len(carry_b)
-            all_b = carry_b + plain_blocks
-            all_h = carry_h + plain_hashes
+                plain[i] = raw
+        datas = await asyncio.gather(
+            *[asyncio.to_thread(_try_decompress, reads[i]) for i in packed])
+        for i, data in zip(packed, datas):
+            if data is None:
+                aside[i] = len(reads[i])
+            else:
+                plain[i] = data
+        order = sorted(plain)
+        store = mgr.parity_store
+        want_parity = store is not None and mgr.codec.params.rs_data > 0
+        # prepend the carry (already-verified blocks from previous
+        # batches) so RS codewords align to k across batch boundaries.
+        # The ≤ k-1 carry blocks are re-hashed by the fused dispatch:
+        # bounded waste (< k blocks per batch) accepted to keep the
+        # verify+encode a single codec call
+        carry_b, carry_h = self._parity_carry if want_parity else ([], [])
+        nc = len(carry_b)
+        all_b = carry_b + [plain[i] for i in order]
+        all_h = carry_h + [batch[i][0] for i in order]
+        at = {i: nc + n for n, i in enumerate(order)}
+        ok, parity = [], None
+        if order:
             # span per fused dispatch: a slow batch (gated link, mid-pass
-            # XLA compile, CPU steal) shows up in the slow-op log even on
+            # compile, CPU steal) shows up in the slow-op log even on
             # nodes with no trace_sink configured
             nbytes = sum(len(b) for b in all_b)
             src.delivered_ns = 0
@@ -506,86 +615,131 @@ class ScrubWorker(Worker):
             # delivered_ns: the moment the feeder or transport resolved
             # the batch; from there to now the worker waited on the loop
             self._span("scrub verify", t_submit, src, len(all_b), nbytes,
-                       delivered_ns=src.delivered_ns)
-            for j, good in enumerate(ok[nc:]):
-                if not good:
-                    h, path, _ = batch[plain_idx[j]]
-                    await self._quarantine(h, path, src,
-                                           len(all_b[nc + j]))
-            acc = mgr.ec_accumulator
-            posts = (acc is not None and acc.distributor is not None
-                     or want_parity and parity is not None)
-            t_post = time.monotonic_ns()
-            # Coverage refresh: verified blocks with NO live distributed
-            # codeword (distribution failed at write time, coverage was
-            # wrongly tombstoned, or the data predates EC) re-enter the
-            # write-side accumulator — scrub makes erasure coverage
-            # convergent, mirroring how it refreshes local sidecars.
-            #
-            # Because every refreshed block is stored on THIS node, the
-            # accumulator's distinct-primary invariant flushes per block
-            # and the refresh emits 1-member partial codewords.  That is
-            # the intended SAFE shape for a single-node stream: the k−1
-            # implicit zero shards are always-available pieces, so the
-            # member survives the loss of up to m of its parity nodes —
-            # full m-loss tolerance at m×(block size) overhead, paid only
-            # for refreshed blocks (rewritten objects regroup at k).
-            if acc is not None and acc.distributor is not None:
-                from .block import DataBlock
+                       delivered_ns=src.delivered_ns,
+                       prefixes=_prefixes(batch[i] for i in order))
+        return _Judged(aside, at, all_b, all_h, ok, parity, want_parity, nc)
 
-                cand = []
-                for j, good in enumerate(ok[nc:]):
-                    h = all_h[nc + j]
-                    # NOT gated on acc.recently_added: that LRU remembers
-                    # the WRITE-time add, which is exactly the add whose
-                    # coverage may have been lost — locally_covered is
-                    # the authoritative duplicate guard, and a rare
-                    # double codeword (add raced an in-flight flush) is
-                    # benign extra parity, reclaimed by normal GC
-                    if good and not mgr.is_parity_block(h):
-                        cand.append((h, all_b[nc + j]))
+    async def _settle(self, judged: _Judged,
+                      entries: List[Tuple[Hash, str, bool]], lo: int,
+                      src: Src) -> None:
+        """Settle one prefix of a verified batch (its ``entries`` start at
+        ``lo``): set aside what failed, refresh erasure coverage, write
+        the sidecars of the codewords it completes."""
+        mgr = self.manager
+        for i, (h, path, _c) in enumerate(entries, lo):
+            if i in judged.aside:
+                await self._quarantine(h, path, src, judged.aside[i])
+        idx = [judged.at[i] for i in range(lo, lo + len(entries))
+               if i in judged.at]
+        if not idx:
+            return
+        ok, blocks = judged.ok, judged.blocks
+        for i, (h, path, _c) in enumerate(entries, lo):
+            s = judged.at.get(i)
+            if s is not None and not ok[s]:
+                await self._quarantine(h, path, src, len(blocks[s]))
+        acc = mgr.ec_accumulator
+        sidecars = judged.want_parity and judged.parity is not None
+        posts = acc is not None and acc.distributor is not None or sidecars
+        t_post = time.monotonic_ns()
+        # Coverage refresh: verified blocks with NO live distributed
+        # codeword (distribution failed at write time, coverage was
+        # wrongly tombstoned, or the data predates EC) re-enter the
+        # write-side accumulator — scrub makes erasure coverage
+        # convergent, mirroring how it refreshes local sidecars.
+        #
+        # Because every refreshed block is stored on THIS node, the
+        # accumulator's distinct-primary invariant flushes per block
+        # and the refresh emits 1-member partial codewords.  That is
+        # the intended SAFE shape for a single-node stream: the k−1
+        # implicit zero shards are always-available pieces, so the
+        # member survives the loss of up to m of its parity nodes —
+        # full m-loss tolerance at m×(block size) overhead, paid only
+        # for refreshed blocks (rewritten objects regroup at k).
+        if acc is not None and acc.distributor is not None:
+            from .block import DataBlock
 
-                def _uncovered():
-                    # one off-loop hop for the whole batch: the per-hash
-                    # index probes are synchronous DB iteration
-                    d = acc.distributor
-                    return [
-                        (h, b) for h, b in cand
-                        if d.holds_index_for(h) and not d.locally_covered(h)
-                    ]
+            # NOT gated on acc.recently_added: that LRU remembers the
+            # WRITE-time add, which is exactly the add whose coverage
+            # may have been lost — locally_covered is the authoritative
+            # duplicate guard, and a rare double codeword (add raced an
+            # in-flight flush) is benign extra parity, reclaimed by
+            # normal GC
+            cand = [(judged.hashes[s], blocks[s]) for s in idx
+                    if ok[s] and not mgr.is_parity_block(judged.hashes[s])]
 
-                for h, b in await asyncio.to_thread(_uncovered):
-                    self.coverage_refreshed += 1
-                    acc.add(h, DataBlock.plain(b))
-            if want_parity and parity is not None:
-                # persist RS sidecars for every COMPLETE codeword whose
-                # members all verified — this is what makes a later
-                # corruption locally repairable with zero network
-                # (the BlockCodec north star's decode-repair half)
-                k = mgr.codec.params.rs_data
-                nrows = len(all_b) // k
-                for row in range(nrows):
-                    lo = row * k
-                    if not all(ok[lo:lo + k]):
-                        continue
-                    # trim to the row's own width: pad columns beyond the
-                    # longest member are zero parity (GF-linear) and would
-                    # bloat the sidecar to the batch-global maxlen
-                    row_max = max(len(b) for b in all_b[lo:lo + k])
-                    await asyncio.to_thread(
-                        store.put_codeword,
-                        all_h[lo:lo + k],
-                        [len(b) for b in all_b[lo:lo + k]],
-                        np.asarray(parity[row])[:, :row_max],
-                    )
-                rest = nrows * k
-                self._parity_carry = (
-                    [b for b, good in zip(all_b[rest:], ok[rest:]) if good],
-                    [h for h, good in zip(all_h[rest:],
-                                          ok[rest:]) if good],
-                )
-            if posts:
-                self._span("scrub post", t_post, src, len(all_b), nbytes)
+            def _uncovered():
+                # one off-loop hop for the whole prefix: the per-hash
+                # index probes are synchronous DB iteration
+                d = acc.distributor
+                return [
+                    (h, b) for h, b in cand
+                    if d.holds_index_for(h) and not d.locally_covered(h)
+                ]
+
+            for h, b in await asyncio.to_thread(_uncovered):
+                self.coverage_refreshed += 1
+                acc.add(h, DataBlock.plain(b))
+        if sidecars:
+            await self._post_sidecars(judged, idx)
+        if posts:
+            self._span("scrub post", t_post, src, len(idx),
+                       sum(len(blocks[s]) for s in idx))
+
+    async def _post_sidecars(self, judged: _Judged, idx: List[int]) -> None:
+        """Persist RS sidecars for every COMPLETE codeword whose members
+        all verified — this is what makes a later corruption locally
+        repairable with zero network (the BlockCodec north star's
+        decode-repair half).
+
+        Rows form as a one-prefix batch forms them: the carry, then the
+        prefix's blocks (``idx``, stream indices), k at a time; the
+        trailing partial row's verified blocks carry on.  A row that is
+        also a row of the dispatch (k aligned stream entries) takes the
+        dispatch's parity.  A block that fails in a trailing partial row
+        drops out of the carry and shifts every later row against the
+        dispatch's: their parity is computed again."""
+        store = self.manager.parity_store
+        k = self.manager.codec.params.rs_data
+        ok, blocks, hashes = judged.ok, judged.blocks, judged.hashes
+        stream = judged.carry + idx
+        nrows = len(stream) // k
+        rows = [m for m in (stream[r * k:(r + 1) * k] for r in range(nrows))
+                if all(ok[s] for s in m)]
+        shifted = [m for m in rows if m[0] % k or m[-1] - m[0] != k - 1]
+        fresh = {}
+        if shifted:
+            par = await self._encode([blocks[s] for m in shifted for s in m])
+            fresh = {m[0]: par[r] for r, m in enumerate(shifted)}
+        for m in rows:
+            parity = fresh[m[0]] if m[0] in fresh else judged.parity[m[0] // k]
+            # trim to the row's own width: pad columns beyond the
+            # longest member are zero parity (GF-linear) and would
+            # bloat the sidecar to the batch-global maxlen
+            row_max = max(len(blocks[s]) for s in m)
+            await asyncio.to_thread(
+                store.put_codeword,
+                [hashes[s] for s in m],
+                [len(blocks[s]) for s in m],
+                np.asarray(parity)[:, :row_max],
+            )
+        judged.carry = [s for s in stream[nrows * k:] if ok[s]]
+        self._parity_carry = ([blocks[s] for s in judged.carry],
+                              [hashes[s] for s in judged.carry])
+
+    async def _encode(self, blocks: List[bytes]) -> np.ndarray:
+        """RS parity of whole codewords, through the feeder when armed."""
+        from ..ops.feeder import FeederClosed
+
+        feeder = self.manager.feeder
+        if feeder is not None:
+            try:
+                return await asyncio.wrap_future(
+                    feeder.submit_encode(blocks, cls="bg"))
+            except FeederClosed:
+                pass
+        return await asyncio.to_thread(self.manager.codec.rs_encode_blocks,
+                                       blocks)
 
     async def _quarantine(self, h: Hash, path: str, src: Src,
                           nbytes: int = 0) -> None:
@@ -778,6 +932,12 @@ _READ_ERROR = object()
 
 def _nbytes(reads) -> int:
     return sum(len(r) for r in reads if r is not None and r is not _READ_ERROR)
+
+
+def _prefixes(entries) -> int:
+    """How many ``xx/yy`` prefixes the (hash, path, compressed) entries
+    come from."""
+    return len({bytes(h)[:2] for h, _path, _c in entries})
 
 
 def _read_stamped(mgr, path: str):

@@ -50,10 +50,10 @@ def _pkg(name: str) -> types.SimpleNamespace:
 REF, PORT = _pkg("garage_tpu"), _pkg("garage_tpu_torch")
 
 
-def _codec(P, kind: str, k: int = 8, m: int = 4):
+def _codec(P, kind: str, k: int = 8, m: int = 4, **params):
     """A codec factory: the reference runs its CPU codec; the port its
     cuda or hybrid codec on the kernels' plain versions, or its CPU one."""
-    kw = {"rs_data": k, "rs_parity": m}
+    kw = {"rs_data": k, "rs_parity": m, **params}
     if P is REF or kind == "cpu":
         return lambda: P.make_codec("cpu", **kw)
     return lambda: P.make_codec(kind, device="cpu", **kw)
@@ -272,6 +272,158 @@ async def test_rotted_block_found_on_a_warm_pool_pass(tmp_path):
             assert resident == len(blocks)  # the pass left every page warm
         await close_nodes([node])
     assert runs["garage_tpu_torch"] == runs["garage_tpu"] == (0, 1, False)
+
+
+# --- scrub windows: successive prefixes in one dispatch ----------------------
+
+def _dispatches(node) -> int:
+    return node.feeder.stats()["dispatches"]
+
+
+async def _window_run(P, root, batch_blocks):
+    blocks = _blocks(40, 300, 900, 7)
+    nodes = await make_nodes(P, root, [
+        _codec(P, kind, batch_blocks=batch_blocks)
+        for kind in ("hybrid", "cuda", "cpu")])
+    hashes = [P.Hash(bytes(blake2s_sum(b))) for b in blocks]
+    for h, b in zip(hashes, blocks):
+        await nodes[0].rpc_put_block(h, b)
+    for _ in range(200):
+        if all(m.is_block_present(h) for m in nodes for h in hashes):
+            break
+        await asyncio.sleep(0.02)
+    for m in nodes:
+        m.db.transaction(lambda tx, m=m: [m.rc.block_incref(tx, h)
+                                          for h in hashes])
+    node = nodes[0]
+    path, compressed = node.find_block(hashes[5])
+    assert not compressed
+    _flip(path, len(blocks[5]) // 2)
+    w = P.ScrubWorker(node)
+    w.set_tranquility(0)
+    d0 = _dispatches(node)
+    first = await _scrub_pass(w)
+    d1 = _dispatches(node)
+    quarantined = sorted(i for i, h in enumerate(hashes)
+                         if not node.is_block_present(h))
+    await _drain_resync(P, node)
+    second = await _scrub_pass(w)
+    d2 = _dispatches(node)
+    data = str(root / "n0" / "data")
+    files = sorted(os.path.relpath(os.path.join(d, n), data)
+                   for d, _s, names in os.walk(data) for n in names)
+    healed = [(await node.read_block(h)).decompressed() == b
+              for h, b in zip(hashes, blocks)]
+    await close_nodes(nodes)
+    out = {"first": first, "quarantined": quarantined, "second": second,
+           "files": files, "healed": healed}
+    return out, (d1 - d0, d2 - d1), len({bytes(h)[:2] for h in hashes})
+
+
+@pytest.mark.parametrize("batch_blocks", [8, 64])
+async def test_scrub_windows_span_prefixes(tmp_path, batch_blocks):
+    """40 blocks over about as many prefixes: the port's scrub sends a
+    window of at least ``batch_blocks`` blocks per dispatch, never split
+    inside a prefix, and finds, sets aside and heals what the
+    reference's one-prefix batches do."""
+    ref, _d, _n = await _window_run(REF, tmp_path / "ref", batch_blocks)
+    port, per_pass, prefixes = await _window_run(
+        PORT, tmp_path / "port", batch_blocks)
+    assert port == ref
+    assert (ref["first"], ref["quarantined"], ref["second"]) == (1, [5], 0)
+    assert all(ref["healed"])
+    assert prefixes >= 3 * 8
+    if batch_blocks >= 40:
+        assert per_pass == (1, 1)
+    else:
+        assert all(1 < d <= -(-40 // batch_blocks) + 1 for d in per_pass)
+
+
+async def _emptied_run(P, root):
+    blocks = _blocks(12, 200, 400, 8)
+    (node,) = await make_nodes(P, root, [_codec(P, "cuda", batch_blocks=4)],
+                               mode="1")
+    hashes = [P.Hash(bytes(blake2s_sum(b))) for b in blocks]
+    for h, b in zip(hashes, blocks):
+        await node.write_block(h, P.DataBlock.plain(b))
+    # the files of all blocks after the first window go, their prefix
+    # dirs stay: the second window lists prefixes and no block
+    for h in sorted(hashes, key=bytes)[4:]:
+        os.remove(node.find_block(h)[0])
+    w = P.ScrubWorker(node)
+    w.set_tranquility(0)
+    found = await _scrub_pass(w)
+    out = (found, w.iterator is None, w.state.time_last_complete > 0)
+    await close_nodes([node])
+    return out
+
+
+async def test_scrub_windows_over_emptied_prefix_dirs(tmp_path):
+    """A window can end the pass holding prefix dirs and no block."""
+    ref = await _emptied_run(REF, tmp_path / "ref")
+    port = await _emptied_run(PORT, tmp_path / "port")
+    assert port == ref == (0, True, True)
+
+
+async def _shifted_row_run(P, root, k, m):
+    blocks = _blocks(20, 300, 900, 9)
+    (node,) = await make_nodes(P, root, [_codec(P, "cuda", k, m,
+                                                batch_blocks=8)], mode="1")
+    node.blocks_reconstructed = 0
+    node.parity_store = P.ParityStore(node, P.open_db("memory"), node.codec)
+    hashes = [P.Hash(bytes(blake2s_sum(b))) for b in blocks]
+    for h, b in zip(hashes, blocks):
+        await node.write_block(h, P.DataBlock.from_buffer(b, 1))
+    assert len({bytes(h)[:2] for h in hashes}) == len(hashes)
+    # one block per prefix: a one-prefix batch holds the carry and one
+    # block, so a plain block that does not complete its row sits in
+    # the batch's trailing partial row
+    order = sorted(range(len(blocks)), key=lambda i: bytes(hashes[i]))
+    victim = next(i for pos, i in enumerate(order)
+                  if 0 < pos < len(order) - k and pos % k != k - 1
+                  and not node.find_block(hashes[i])[1])
+    w = P.ScrubWorker(node)
+    w.set_tranquility(0)
+    encodes = []
+    if P is PORT:
+        encode = w._encode
+
+        async def counted(bs):
+            encodes.append(len(bs))
+            return await encode(bs)
+        w._encode = counted
+    first = await _scrub_pass(w)
+    _flip(node.find_block(hashes[victim])[0], len(blocks[victim]) // 3)
+    second = await _scrub_pass(w)
+    files = {}
+    for base in node.parity_store.all_dirs:
+        for dirpath, _d, names in os.walk(base):
+            for name in names:
+                with open(os.path.join(dirpath, name), "rb") as f:
+                    files[os.path.relpath(os.path.join(dirpath, name),
+                                          base)] = f.read()
+    out = {"first": first, "second": second, "files": files,
+           "index": sorted(node.parity_store.index.items(None, None)),
+           "reconstructed": node.blocks_reconstructed,
+           "rebuilt": (await node.read_block(hashes[victim])).decompressed()
+           == blocks[victim]}
+    await close_nodes([node])
+    return out, encodes
+
+
+@pytest.mark.parametrize("k,m", [(2, 1), (4, 2)])
+async def test_sidecars_after_a_block_fails_in_a_trailing_row(tmp_path, k, m):
+    """A block that fails where a one-prefix batch would have held it in
+    its trailing partial row drops out of the parity carry, and every
+    later codeword shifts against the window's rows: the port computes
+    those rows' parity again, and its sidecars and parity index equal
+    the reference's byte for byte."""
+    ref, _e = await _shifted_row_run(REF, tmp_path / "ref", k, m)
+    port, encodes = await _shifted_row_run(PORT, tmp_path / "port", k, m)
+    assert port == ref
+    assert (ref["first"], ref["second"], ref["reconstructed"],
+            ref["rebuilt"]) == (0, 1, 1, True)
+    assert encodes and all(n % k == 0 for n in encodes)
 
 
 # --- scrub checkpoint and resume ---------------------------------------------

@@ -179,12 +179,17 @@ async def test_a_scrub_batch_carries_its_id_through_feeder_and_transport(
         by.setdefault(e["args"]["batch"], []).append(e)
     batches = {b for b, es in by.items()
                if any(e["name"] == "scrub verify" for e in es)}
-    assert len(batches) == 6           # one prefix per block here
+    # one prefix per block here, and all six fit one window of the
+    # codec's batch_blocks: one dispatch carries every prefix
+    assert len(batches) == 1
     for b in batches:
         names = [e["name"] for e in by[b]]
         assert names.count("scrub await_read") == 1
         assert names.count("scrub verify") == 1
         assert {"scrub list", "scrub read"} <= set(names)
+        for name in ("scrub list", "scrub read", "scrub verify"):
+            ev = next(e for e in by[b] if e["name"] == name)
+            assert (ev["args"]["prefixes"], ev["args"]["blocks"]) == (6, 6)
         ver = next(e for e in by[b] if e["name"] == "scrub verify")
         aw = next(e for e in by[b] if e["name"] == "scrub await_read")
         # the resolver's stamp lies inside the verify; the read-ahead
@@ -328,10 +333,17 @@ async def test_the_governors_pause_of_the_scrub_is_a_span(tmp_path):
     tl = node.codec.obs.timeline
     thr = [e for track, e in _by_track(tl, tl.since(0)[0])
            if track == "scrub" and e["name"] == "scrub throttle"]
-    verified = {e["args"]["batch"] for track, e in _by_track(
-        tl, tl.since(0)[0]) if e["name"] == "scrub verify"}
+    verified = {e["args"]["batch"]: e["args"]["prefixes"]
+                for track, e in _by_track(tl, tl.since(0)[0])
+                if e["name"] == "scrub verify"}
     whole = [e for e in thr if e["ts"] + 30_000 < t_stop_us]
     assert len(whole) >= 3
     assert all(e["dur"] >= 25_000 for e in whole)
     assert all(e["args"]["signal"] == "queue_wait" for e in thr)
-    assert {e["args"]["batch"] for e in thr} >= verified
+    assert {e["args"]["batch"] for e in thr} >= set(verified)
+    # a window settles one prefix per work(), and the governor pauses
+    # after each: every verified window is followed by at least as many
+    # pauses as it carried prefixes
+    assert verified and all(
+        sum(e["args"]["batch"] == b for e in whole) >= n
+        for b, n in verified.items())
