@@ -1,15 +1,32 @@
-"""The scrub cell: a node's own ScrubWorker over a store of seeded blocks.
+"""The scrub cell: a node's own ScrubWorker over a store of seeded blocks,
+measured over whole passes that all meet the same corruption.
 
 Set-up starts the configuration's nodes in this process, writes the
 mix's blocks to node 0 through the node's local write path (and good
 copies of the blocks planted bad to node 1), references them as an
-object table would, plants the bad bytes on node 0's disk, and starts
-the scrub at tranquility 0, as ``worker set scrub-tranquility 0`` and
-``repair scrub start`` do.  The window measures the bytes whose verdict
-the worker reaches, starting a new pass as each one ends.  After the
-window the scrub is paused and the node's store is judged against the
-reference: every planted copy it reached set aside and healed from node
-1, no good copy set aside, every stored file hashing to its name.
+object table would, flushes the store to the disk (``os.sync``), and
+sets the scrub to tranquility 0, as ``worker set scrub-tranquility 0``
+does.  Then the passes run one after another (``run_passes``), each as
+``repair scrub start`` asks for one: the planted copies are planted bad
+on node 0's disk, the pass runs to its end, and the next pass waits
+until node 0 has healed from node 1 every copy that this one set aside.
+The first ``warmup_passes`` passes are set-up.  The window opens as the
+next pass's copies are planted and closes once the first pass to end
+after ``--seconds`` has its heals, so it holds whole passes, their heals
+included, and every pass in it meets every planted copy.
+
+The end-to-end metric is the card's time per GiB scrubbed: the union of
+every kernel, copy and memset over the window (``torch.profiler``, the
+CUDA activity alone in an untraced run), over the bytes of its passes.
+The passes' own rate, ``scrub_gibs.window``, a per-layer metric, follows
+the host's speed, which drifts between runs by more than any bound can
+hold.
+
+Each pass is judged as it ends and settles: every planted copy set aside
+and healed with the right content within ``HEAL_WAIT_S``.  Once the
+window has closed, node 0's store is judged against the reference:
+every copy set aside healed from node 1, no good copy set aside, every
+stored file hashing to its name.
 """
 
 from __future__ import annotations
@@ -18,46 +35,161 @@ import asyncio
 import os
 import time
 from pathlib import Path
-from typing import List, Tuple
+from typing import List, Optional
 
-from ..harness import data, profiling
+from ..harness import data, host, profiling, spans
 from ..harness.checks import Checks
 from ..reference import blocks as ref_blocks
 from ..reference import scrub as ref_scrub
 
 FULL = 65536  # the scrub walks two-byte hash prefixes 0 .. 65535
+POLL_S = 0.02
+RESEND_S = 0.1
+# a pass's heals are awaited this long at most: past one resync retry of
+# a failed fetch (60 s) in the program
+HEAL_WAIT_S = 90.0
 
 
 class PassTracker:
-    """The prefix ranges a ScrubWorker has judged, pass by pass, read
-    from its verified position."""
+    """The passes of a ScrubWorker, one at a time: ``start`` asks for
+    one, ``poll`` follows it and says when it has ended, that is when
+    the worker records its completion (``state.time_last_complete``
+    changes).  Each pass keeps the prefix range it judged, read from the
+    verified position, when it was asked for and seen to end, and how
+    often the command was sent again.
+
+    A command sent as the worker goes idle can lie unseen until its
+    ``wait_for_work`` times out (10 s): the wait clears the wake-up that
+    the command set.  Until the worker has the pass under way, the
+    tracker sends the command again every ``RESEND_S``."""
 
     def __init__(self, worker):
-        """``worker`` has a pass under way."""
         self.w = worker
-        self.passes: List[List[int]] = [[0, 0]]
+        self.done_mark = worker.state.time_last_complete
+        self.passes: List[dict] = []
+        self.t_sent = 0.0
 
-    def poll(self) -> None:
-        """Follows the worker; starts a new pass when one has ended."""
-        w = self.w
-        if w.iterator is None and self.passes[-1] != [0, 0]:
-            self.passes[-1][1] = FULL
-            self.passes.append([0, 0])
+    def start(self) -> None:
+        self.t_sent = time.perf_counter()
+        self.passes.append({"range": [0, 0], "t_start": self.t_sent,
+                            "t_end": None, "resent": 0, "under_way": False})
+        self.w.send_command("start")
+
+    def poll(self) -> bool:
+        """True once the pass asked for last has ended."""
+        w, st, p = self.w, self.w.state, self.passes[-1]
+        if st.time_last_complete != self.done_mark:
+            self.done_mark = st.time_last_complete
+            p["range"][1] = FULL
+            p["t_end"] = time.perf_counter()
+            return True
+        if w.iterator is not None:
+            p["under_way"] = True
+            p["range"][1] = max(p["range"][1], w._verified_pos)
+        elif (not p["under_way"]
+              and time.perf_counter() - self.t_sent >= RESEND_S):
+            self.t_sent = time.perf_counter()
+            p["resent"] += 1
             w.send_command("start")
-        elif w.iterator is not None:
-            self.passes[-1][1] = max(self.passes[-1][1], w._verified_pos)
+        return False
 
-    def cursor(self) -> Tuple[int, int]:
-        return len(self.passes) - 1, self.passes[-1][1]
+    def ranges(self, first: int = 0):
+        return [tuple(p["range"]) for p in self.passes[first:]
+                if p["range"][1] > p["range"][0]]
 
-    def between(self, a: Tuple[int, int], b: Tuple[int, int]) -> List[Tuple[int, int]]:
-        (pa, xa), (pb, xb) = a, b
-        if pa == pb:
-            return [(xa, xb)]
-        return [(xa, FULL)] + [(0, FULL)] * (pb - pa - 1) + [(0, xb)]
 
-    def all_ranges(self) -> List[Tuple[int, int]]:
-        return [(lo, hi) for lo, hi in self.passes if hi > lo]
+class Plants:
+    """The copies planted bad on node 0, the same ones before every pass.
+
+    A planted block goes round: healed (a good copy under its name; each
+    is one at the start), planted (one byte of it flipped, its inode
+    noted), set aside (that inode under ``.corrupted``), healed again (a
+    new file under its name that hashes to it, by the reference).
+    ``plant`` and ``look`` touch the disk and run in a thread, never on
+    the nodes' event loop, and only between passes: beside a pass the
+    harness only reads the worker's state and the nodes' timelines."""
+
+    def __init__(self, root: str, digests: List[bytes], planted: dict):
+        self.items = []
+        for i, frac in sorted(planted.items()):
+            hx = digests[i].hex()
+            self.items.append({
+                "base": os.path.join(root, hx[:2], hx[2:4], hx),
+                "frac": frac, "stage": "healed", "path": None, "ino": None})
+        self.per_pass: List[dict] = []
+
+    @staticmethod
+    def _current(base: str):
+        for p in (base, base + ".zst"):
+            try:
+                return p, os.stat(p)
+            except FileNotFoundError:
+                pass
+        return None, None
+
+    def plant(self) -> int:
+        """Before a pass: every healed copy planted bad; returns the
+        copies planted for the pass."""
+        for it in self.items:
+            if it["stage"] == "healed":
+                it["path"], s = self._current(it["base"])
+                it["ino"] = s.st_ino
+                flip_byte(it["path"], it["frac"])
+                it["stage"] = "planted"
+        return self.count("planted")
+
+    def look(self) -> None:
+        """Moves each planted copy that the scrub has set aside to
+        ``aside``, and each copy set aside that node 0 has replaced to
+        ``healed`` (or ``bad``, where the new file does not hash to its
+        name)."""
+        for it in self.items:
+            if it["stage"] == "planted":
+                try:
+                    s = os.stat(it["path"] + ".corrupted")
+                except FileNotFoundError:
+                    s = None
+                if s is not None and s.st_ino == it["ino"]:
+                    it["stage"] = "aside"
+            if it["stage"] == "aside":
+                path, s = self._current(it["base"])
+                if s is not None and s.st_ino != it["ino"]:
+                    it["path"], it["ino"] = path, s.st_ino
+                    it["stage"] = ("healed" if ref_blocks.file_content_ok(path)
+                                   else "bad")
+
+    def count(self, stage: str) -> int:
+        return sum(1 for it in self.items if it["stage"] == stage)
+
+    async def settle(self, planted: int, wait_s: float, tick=None) -> dict:
+        """After a pass: what it set aside and missed, then the heals,
+        awaited for ``wait_s`` at most (``tick`` called at each look); a
+        copy not healed by then is ``late`` and never planted again."""
+        t0 = time.perf_counter()
+        await asyncio.to_thread(self.look)
+        missed = self.count("planted")
+        look_s = time.perf_counter() - t0
+        while self.count("aside") and time.perf_counter() - t0 < wait_s:
+            await asyncio.sleep(POLL_S)
+            if tick is not None:
+                tick()
+            t = time.perf_counter()
+            await asyncio.to_thread(self.look)
+            look_s = time.perf_counter() - t
+        late = self.count("aside")
+        for it in self.items:
+            if it["stage"] == "aside":
+                it["stage"] = "late"
+        rec = {"planted": planted, "set_aside": planted - missed,
+               "missed": missed, "healed": self.count("healed"),
+               "late": late, "bad": self.count("bad"),
+               "heal_wait_s": time.perf_counter() - t0,
+               "last_look_s": look_s}
+        self.per_pass.append(rec)
+        return rec
+
+    def unhealed(self) -> int:
+        return self.count("late") + self.count("bad")
 
 
 def bytes_in(ranges, prefixes, sizes) -> int:
@@ -93,6 +225,29 @@ async def wait_until(cond, timeout: float, dt: float = 0.05) -> bool:
     return True
 
 
+async def run_passes(track: PassTracker, plants: Plants,
+                     n: Optional[int] = None, until: Optional[float] = None,
+                     drain=None) -> None:
+    """Whole passes one after another, each meeting every planted copy:
+    the copies planted, the pass asked for and followed to its end, its
+    heals awaited.  Stops after ``n`` passes, or once the first pass to
+    end at or after ``until`` (``perf_counter``) has settled."""
+    for _ in range(n if n is not None else 1 << 30):
+        t0 = time.perf_counter()
+        planted = await asyncio.to_thread(plants.plant)
+        plant_s = time.perf_counter() - t0
+        track.start()
+        while not track.poll():
+            await asyncio.sleep(POLL_S)
+            if drain is not None:
+                drain.poll()
+        rec = await plants.settle(planted, HEAL_WAIT_S,
+                                  drain.poll if drain is not None else None)
+        rec["plant_s"] = plant_s
+        if until is not None and track.passes[-1]["t_end"] >= until:
+            return
+
+
 async def run(ctx) -> dict:
     from garage_tpu_torch.block.block import DataBlock
     from garage_tpu_torch.utils.data import Hash
@@ -125,64 +280,67 @@ async def run(ctx) -> dict:
                                       for d in digests])
         m1.db.transaction(lambda tx: [m1.rc.block_incref(tx, Hash(digests[i]))
                                       for i in planted])
-        for i, frac in store.planted.items():
-            flip_byte(m0.find_block(Hash(digests[i]))[0], frac)
+        root0 = str(Path(ctx.tmp) / "n0" / "data")
+        worker = nodes[0].scrub_worker
+        plants = Plants(root0, digests, store.planted)
         if ctx.fault is not None:
             ctx.fault(nodes)
         await wait_until(lambda: m0.resync.queue_len() == 0
                          and m1.resync.queue_len() == 0, 60)
+        # the store on the disk before the first pass: else the host's
+        # writeback of its 2 GiB runs on into the passes and slows their
+        # reads for some tens of seconds
+        await asyncio.to_thread(os.sync)
 
-        # 2. warm-up: the scrub itself, until it has judged some blocks
-        worker = nodes[0].scrub_worker
+        # 2. warm-up: the first whole passes with their heals
         worker.set_tranquility(0)
-        worker.send_command("start")
-        await wait_until(lambda: worker.iterator is not None, 30)
         track = PassTracker(worker)
-        warm_until = time.perf_counter() + float(t["warmup_s"])
-        while time.perf_counter() < warm_until:
-            track.poll()
-            await asyncio.sleep(0.02)
+        await run_passes(track, plants, n=int(t["warmup_passes"]))
 
-        # 3. the window
+        # 3. the window: whole passes with their heals, until the first
+        # pass to end after --seconds has settled
         feeder, obs = m0.feeder, m0.codec.obs
-        before = (feeder.stats(), dict(obs.bytes_total))
-        prof = (profiling.Window(os.path.join(ctx.tmp, "trace.json"))
-                if ctx.trace else None)
-        if prof:
+        # the card's time over the window in every run on the card: the
+        # whole trace of a traced run, the CUDA activity alone otherwise
+        prof = None
+        if ctx.device == "cuda":
+            out_path = os.path.join(ctx.tmp, "trace.json")
+            prof = (profiling.Window(out_path) if ctx.trace
+                    else profiling.CardTime(out_path))
             prof.start()
-        track.poll()
-        a, t_open = track.cursor(), time.perf_counter()
+        # the program's spans over the window: the per-layer metrics of a
+        # traced run, and the load governor's pauses in every run's notes
+        drain = spans.Drain([g.block_manager.codec.obs.timeline
+                             for g in nodes])
+        drain.open()
+        before = (feeder.stats(), dict(obs.bytes_total))
+        heals0 = sum(m0.heal_counts.values())
+        ctx.host["load1"] = host.load1()
+        first = len(track.passes)
+        t_open = time.perf_counter()
         setup_s = t_open - ctx.t_process
-        while time.perf_counter() - t_open < ctx.seconds:
-            await asyncio.sleep(0.02)
-            track.poll()
-        b, window_s = track.cursor(), time.perf_counter() - t_open
+        await run_passes(track, plants, until=t_open + ctx.seconds, drain=drain)
+        window_s = time.perf_counter() - t_open
+        heals_in_window = sum(m0.heal_counts.values()) - heals0
         if prof:
             prof.stop()
+        drain.poll()
         after = (feeder.stats(), dict(obs.bytes_total))
-
-        # 4. stop the scrub where it is
-        worker.send_command("pause")
-        await wait_until(lambda: worker.state.paused, 30)
-        await asyncio.sleep(0.5)
-        if worker.iterator is not None:
-            track.passes[-1][1] = max(track.passes[-1][1], worker._verified_pos)
         memory = ctx.memory_peak()
 
-        # 5. judge node 0 against the reference
+        red, card_ms_per_gib = None, None
         prefixes = [ref_scrub.prefix(d) for d in digests]
-        window_bytes = bytes_in(track.between(a, b), prefixes, store.sizes)
-        ranges = track.all_ranges()
+        window_bytes = bytes_in(track.ranges(first), prefixes, store.sizes)
+        if prof:
+            red = (profiling.reduce([prof.out_path]) if ctx.trace
+                   else profiling.card_time(prof.out_path))
+            if red["device_events"] and window_bytes:
+                card_ms_per_gib = 1e3 * red["busy_s"] / (window_bytes / 2**30)
+        scrub_gibs = window_bytes / window_s / 2**30
+
+        # 4. node 0 judged against the reference
+        ranges = track.ranges()
         reached_bad = ref_scrub.covered([digests[i] for i in planted], ranges)
-        root0 = str(Path(ctx.tmp) / "n0" / "data")
-
-        def healed() -> bool:
-            present, _q, _o = ref_blocks.walk_store(root0)
-            return all(d.hex() in present
-                       and not ref_blocks.bad_files(present[d.hex()])
-                       for d in reached_bad)
-
-        await wait_until(healed, 60, 0.5)
         present, quarantined, other = ref_blocks.walk_store(root0)
         bad_planted = {digests[i] for i in planted}
         unreached_bad = {d.hex() for d in bad_planted - reached_bad}
@@ -204,24 +362,55 @@ async def run(ctx) -> dict:
         checks.at_most("unhealed", counts["unhealed"], 0)
         checks.at_most("missing_blocks", counts["missing_blocks"], 0)
         checks.at_most("bad_files", len(bad) + len(bad1) + len(other), 0)
+        # pass by pass: each planted copy set aside by every pass, and
+        # healed from node 1 with the right content before the next
+        checks.at_most("missed_in_a_pass",
+                       sum(p["missed"] for p in plants.per_pass), 0)
+        checks.at_most("unhealed_in_a_pass", plants.unhealed(), 0)
 
+        passes, settled = track.passes[first:], plants.per_pass[first:]
         out = {
             "attempted": counts["verdicts"],
             "failed": counts["missed_corruptions"] + counts["false_quarantines"],
-            "metrics": {"scrub_gibs": window_bytes / window_s / 2**30,
+            "metrics": {"scrub_card_ms_per_gib": card_ms_per_gib,
                         "setup_s": setup_s},
             "checks": checks, "memory_peak_bytes": memory,
-            "notes": {"passes": len(track.passes),
+            "notes": {"scrub_gibs": scrub_gibs,
+                      "card_ms_per_gib": card_ms_per_gib,
+                      "card_busy_s": red["busy_s"] if red else None,
+                      "passes": len(track.passes),
+                      "window_passes": len(passes),
+                      "window_s": window_s,
+                      "pass_s": [p["t_end"] - p["t_start"] for p in passes],
+                      "heal_wait_s": [p["heal_wait_s"] for p in settled],
+                      "planted_per_pass": [p["planted"] for p in settled],
+                      "set_aside_per_pass": [p["set_aside"] for p in settled],
+                      "healed_per_pass": [p["healed"] for p in settled],
+                      # the harness's own time between passes: planting,
+                      # and the look that found the last heal
+                      "harness_ms_per_pass": [
+                          1e3 * (p["plant_s"] + p["last_look_s"])
+                          for p in settled],
+                      "heals_in_window": heals_in_window,
+                      "start_resent": sum(p["resent"] for p in passes),
                       "planted_reached": counts["planted_reached"],
-                      "window_blocks": window_bytes / 2**20},
+                      "window_blocks": window_bytes / 2**20,
+                      "throttle_s": spans.throttle_seconds(
+                          (drain.spans() or [[]])[0])},
             "obs": {"feeder": (before[0], after[0]),
-                    "bytes_by_side": (before[1], after[1])},
+                    "bytes_by_side": (before[1], after[1]),
+                    "window_gibs": scrub_gibs},
         }
-        if prof:
-            red = profiling.reduce([prof.out_path])
+        if prof and ctx.trace:
             out["trace"] = red
             out["obs"]["trace"] = red
             out["obs"]["trace_bytes_by_side"] = out["obs"]["bytes_by_side"]
+            sp = drain.result(prof.out_path, (prof.t0, prof.t1))
+            if sp is not None:
+                out["obs"]["spans"] = sp
+                out["notes"]["spans"] = {k: sp[k] for k in (
+                    "dropped", "events", "metrics", "throttle_s")}
+                out["notes"]["idle_by_span"] = sp["idle_by_span"][:12]
         return out
     finally:
         await inproc.stop(nodes)

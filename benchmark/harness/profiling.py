@@ -1,5 +1,6 @@
 """A traced window: ``torch.profiler`` (CPU and CUDA activities) on this
-process and a sampler of its threads' stacks, written to files."""
+process and a sampler of its threads' stacks, written to files; and the
+card's time over an untraced window (``CardTime``)."""
 
 from __future__ import annotations
 
@@ -48,6 +49,44 @@ class Window:
                        "samples": self.sampler.samples}, f)
         self.prof = None
         return (self.t1 - self.t0) * 1e-6
+
+
+class CardTime:
+    """The card's busy time over an untraced window: ``torch.profiler``
+    with the CUDA activity alone, no host operators and no stack
+    samples, so that the host does an untraced run's work.  The caller
+    opens and closes it with the card idle, so every device event of
+    the trace lies inside the window."""
+
+    def __init__(self, out_path: str):
+        self.out_path = out_path
+        self.prof = None
+
+    def start(self) -> None:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.prof.start()
+
+    def stop(self) -> None:
+        import torch
+
+        torch.cuda.synchronize()
+        self.prof.stop()
+        self.prof.export_chrome_trace(self.out_path)
+        self.prof = None
+
+
+def card_time(trace_path: str) -> dict:
+    """busy seconds (the union of every kernel, copy and memset) and the
+    count of device events of an untraced window's trace."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = devtrace.device_events(e for e in events if e.get("ph") == "X"
+                                 and "ts" in e and "dur" in e)
+    return {"busy_s": devtrace.busy_seconds(dev), "device_events": len(dev)}
 
 
 def reduce(trace_paths: List[str], window=None) -> dict:

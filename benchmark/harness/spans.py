@@ -80,6 +80,18 @@ class Drain:
         return out
 
 
+def reader(name: str):
+    """The ``read`` of a per-layer metric that ``summarize`` computes:
+    the metric ``name`` of a traced window's spans, or None when there
+    were none or the drain lost an event (``dropped`` above 0)."""
+    def read(obs):
+        sp = obs.get("spans")
+        if not sp or sp.get("dropped", 1) > 0:
+            return None
+        return sp["metrics"].get(name)
+    return read
+
+
 def trace_events(path: str, mark_wall_us: float) -> List[dict]:
     """The profiler trace's complete events on the wall clock (us),
     aligned by the end of the window's marker."""

@@ -4,7 +4,7 @@ memset, in percent: 1 - (the union of the device intervals of the
 
 LAYER = "device"
 UNIT = "%"
-MOVES = "scrub_gibs"
+MOVES = "scrub_card_ms_per_gib"
 SOURCE = "device_trace"
 
 

@@ -15,7 +15,7 @@ from benchmark.harness import roofline
 
 LAYER = "kernel csrc/blake2s.cu"
 UNIT = "%"
-MOVES = "scrub_gibs"
+MOVES = "scrub_card_ms_per_gib"
 SOURCE = "device_trace"
 
 

@@ -4,7 +4,7 @@ window's change in its feeder's ``dispatched_blocks`` over its change in
 
 LAYER = "block/repair.py ScrubWorker"
 UNIT = "blocks"
-MOVES = "scrub_gibs"
+MOVES = "scrub_card_ms_per_gib"
 SOURCE = "program_counter"
 
 

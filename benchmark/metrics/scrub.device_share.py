@@ -4,7 +4,7 @@ window, in percent: the window's change in the codec observer's
 
 LAYER = "ops/hybrid_codec.py"
 UNIT = "%"
-MOVES = "scrub_gibs"
+MOVES = "scrub_card_ms_per_gib"
 SOURCE = "program_counter"
 
 

@@ -8,7 +8,7 @@ configuration, its traffic mix and its per-layer metrics are files found
 by name (``harness/spec.py``).  The last line of standard output is one
 JSON object: ``correct``, ``attempted``, ``failed``, ``metrics`` (the
 cell's end-to-end metrics, or with ``--trace 1`` its per-layer ones),
-``device``, with ``--trace 1`` ``breakdown``, and last ``checks``: each
+``device``, ``host``, with ``--trace 1`` ``breakdown``, and last ``checks``: each
 number compared with the reference beside its limit, which the last
 lines of standard error repeat.
 """
@@ -46,6 +46,8 @@ class Ctx:
     to write, and the test seam ``fault`` (None in every real run)."""
 
     def __init__(self, args, spec, cell, device, tmp, fault=None):
+        from benchmark.harness import host
+
         self.seed, self.seconds, self.trace = args.seed, args.seconds, args.trace
         self.cell = cell
         self.config = spec.config(cell)
@@ -54,6 +56,8 @@ class Ctx:
         self.tmp = tmp
         self.t_process = T_PROCESS
         self.fault = fault
+        # the host, its load read again by the driver as the window opens
+        self.host = host.record(tmp)
 
     def memory_peak(self) -> int:
         if self.device != "cuda":
@@ -93,6 +97,7 @@ def run_cell(spec, cell, args, device: str = "cuda", card=None, fault=None):
         res["metrics"] = {n: {"value": out["metrics"][n], "unit": u}
                           for n, u in units.items()}
         res["device"] = dev
+    res["host"] = ctx.host
     res["checks"] = out["checks"].items
     return res, out["checks"], out.get("notes", {})
 

@@ -56,6 +56,27 @@ def scrub_control_verify_nothing(nodes):
     feeder.scrub_async = scrub_async
 
 
+def scrub_replant_not_healed(nodes):
+    """One copy planted again is never healed: node 1 serves each block
+    once, and refuses the first block asked for a second time from then
+    on."""
+    from garage_tpu_torch.utils.error import NoSuchBlock
+
+    m1 = nodes[1].block_manager
+    orig = m1.read_block
+    served, refused = set(), set()
+
+    async def read_block(h):
+        key = bytes(h)
+        if key in served and not refused:
+            refused.add(key)
+        if key in refused:
+            raise NoSuchBlock(f"block {key.hex()[:16]} refused")
+        served.add(key)
+        return await orig(h)
+    m1.read_block = read_block
+
+
 SCRUB_FAULTS = {
     "step_unchanged": scrub_step_unchanged,
     "half_batch": scrub_half_batch,

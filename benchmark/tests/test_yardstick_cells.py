@@ -64,20 +64,74 @@ def tiny_spec(cell_name, garage_over=None):
     return spec
 
 
-def run_tiny(cell_name, seed, seconds, fault=None, garage_over=None):
+def run_tiny_notes(cell_name, seed, seconds, fault=None, garage_over=None):
+    """(the result line, its Checks, the run's notes)"""
     spec = tiny_spec(cell_name, garage_over)
     args = types.SimpleNamespace(seed=seed, seconds=seconds, trace=0)
-    res, _checks, _notes = run.run_cell(spec, spec.cell(cell_name), args,
-                                        device="cpu", fault=fault)
-    return res
+    return run.run_cell(spec, spec.cell(cell_name), args, device="cpu",
+                        fault=fault)
+
+
+def run_tiny(cell_name, seed, seconds, fault=None, garage_over=None):
+    return run_tiny_notes(cell_name, seed, seconds, fault, garage_over)[0]
 
 
 def test_scrub_cell_sound_run_is_correct():
     res = run_tiny("r3.scrub", 2**31 + 11, 3.0)
     assert res["correct"], res["checks"]
     assert res["checks"]["verdicts"]["value"] == 512
-    assert res["metrics"]["scrub_gibs"]["value"] > 0
+    # the end-to-end metric is the card's time: none on the CPU, so
+    # nothing to read rather than 0; the passes' rate is in the notes
+    assert res["metrics"]["scrub_card_ms_per_gib"]["value"] is None
+    assert set(res["metrics"]) == {"scrub_card_ms_per_gib", "setup_s"}
     assert list(res)[-1] == "checks"  # the result line ends with the checks
+    assert list(res)[-2] == "host"
+
+
+def data_sizes(seed):
+    from benchmark.harness import data
+
+    spec = tiny_spec("r3.scrub")
+    cell = spec.cell("r3.scrub")
+    cfg, t = spec.config(cell), spec.traffic(cell)
+    size = cfg["garage"]["block_size"]
+    return data.BlockStore(seed, cfg["store_bytes"] // size, size, t).sizes
+
+
+def test_scrub_window_holds_whole_passes_each_meeting_planted_copies():
+    res, _checks, notes = run_tiny_notes("r3.scrub", 2**31 + 14, 2.0)
+    assert res["correct"], res["checks"]
+    assert notes["scrub_gibs"] == pytest.approx(
+        notes["window_blocks"] / 1024 / notes["window_s"])
+    n = notes["window_passes"]
+    assert n >= 2 and notes["passes"] == n + 1  # one warm-up pass
+    # every byte of the window is a whole pass's: n passes of the store
+    store = sum(data_sizes(2**31 + 14))
+    assert notes["window_blocks"] * 2**20 == pytest.approx(n * store)
+    assert len(notes["pass_s"]) == n and all(s > 0 for s in notes["pass_s"])
+    assert len(notes["heal_wait_s"]) == n
+    assert notes["window_s"] >= sum(notes["pass_s"]) + sum(notes["heal_wait_s"])
+    # every pass met every planted copy (1 in 64 of 512), set each aside,
+    # and had each healed before the next pass
+    planted = 512 // 64
+    for key in ("planted_per_pass", "set_aside_per_pass", "healed_per_pass"):
+        assert notes[key] == [planted] * n, key
+    assert notes["heals_in_window"] >= n * planted
+    for name in ("missed_in_a_pass", "unhealed_in_a_pass"):
+        assert res["checks"][name]["value"] == 0
+
+
+def test_scrub_control_a_replanted_copy_not_healed_is_not_correct(monkeypatch):
+    from benchmark.drivers import scrub
+
+    monkeypatch.setattr(scrub, "HEAL_WAIT_S", 5.0)
+    res, _checks, notes = run_tiny_notes("r3.scrub", 2**31 + 15, 2.0,
+                                         faults.scrub_replant_not_healed)
+    assert not res["correct"]
+    assert res["checks"]["unhealed_in_a_pass"]["value"] == 1
+    # the copy left unhealed is never planted again
+    assert notes["planted_per_pass"][1:] == [512 // 64 - 1] * (
+        notes["window_passes"] - 1)
 
 
 @pytest.mark.parametrize("name", sorted(faults.SCRUB_FAULTS))

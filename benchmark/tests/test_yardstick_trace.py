@@ -53,3 +53,23 @@ def test_events_outside_the_window_are_clipped(tmp_path):
     assert red["busy_s"] == pytest.approx(150e-6)
     assert red["idle_gaps"][0] == ["no thread in the program's code",
                                    pytest.approx(850e-6)]
+
+
+def test_card_time_of_an_untraced_window_is_the_union_of_its_device_events(
+        tmp_path):
+    p = str(tmp_path / "trace.json")
+    ev = [{"ph": "X", "cat": "kernel", "name": "blake2s_kernel", "ts": 100,
+           "dur": 300},
+          {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD", "ts": 350,
+           "dur": 100},
+          {"ph": "X", "cat": "gpu_memset", "name": "Memset", "ts": 1000,
+           "dur": 50},
+          {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+           "ts": 90, "dur": 5000},
+          {"ph": "i", "cat": "kernel", "name": "no duration", "ts": 0}]
+    with open(p, "w") as f:
+        json.dump({"traceEvents": ev}, f)
+    red = profiling.card_time(p)
+    # [100, 450] and [1000, 1050] us; the runtime call is the host's
+    assert red["busy_s"] == pytest.approx(400e-6)
+    assert red["device_events"] == 3
